@@ -1,7 +1,7 @@
 """Tutorial: restart-on-failure and ELASTIC recovery.
 
 Two checkpointing subsystems cover the reference's staged-persistence
-design (main_test_with_simulated_data.m:26-35,143-163) and its TPU-native
+design (main_test_with_simulated_data.m:26-35,143-163) and its device-side
 extension:
 
 1. Host npz store (io/checkpoint.py): the frame loop persists each

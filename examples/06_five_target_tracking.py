@@ -12,8 +12,9 @@ on-device lax.scan multi-frame runner, associates tracks with the 5D BFS
 (v8_2.m:227-332), and scores the result with the track-level metrics of
 pipeline/track_metrics.py — the quantitative form of the reference's
 "compare detections with preset targets by eye" idiom (SURVEY.md
-section 4). Full-scale result: results/headline_5target.json (5/5 clean
-tracks on one TPU v5e chip, the -20 dB target included).
+section 4). The full-scale record is in git history
+(``git show dc6ffd7:results/headline_5target.json``: 5/5 clean tracks, the
+-20 dB target included).
 
 Run: python examples/06_five_target_tracking.py
 """

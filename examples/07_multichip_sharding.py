@@ -2,16 +2,17 @@
 
 The reference is strictly single-process (MATLAB; its only parallelism is
 a shared-nothing `parfor` over Monte-Carlo trials,
-main_plot_snr_vs_angle_error.m:167). The TPU-native framework instead
-scales along the physical axes of the problem via a `jax.sharding.Mesh`:
+main_plot_snr_vs_angle_error.m:167). This framework instead scales along
+the physical axes of the problem via a `jax.sharding.Mesh`:
 
-  dp   — data parallel: independent frames/trials (DCN-friendly)
-  ch   — array channels: synthesis + DBF partial-sums psum-reduced (ICI)
+  dp   — data parallel: independent frames/trials (no collectives)
+  ch   — array channels: synthesis + DBF partial-sums psum-reduced
   cpi  — slow time / range: all_to_all axis swaps between PC and MTD
 
 This tutorial runs everything on 8 VIRTUAL CPU devices (the same
 mechanism the test suite and the driver's dryrun use), so it works on
-any machine; on a real TPU slice the identical code spans real chips.
+any machine; on a multi-GPU host the identical code spans the cards, and
+XLA hands the collectives to NCCL.
 
 It shows, smallest to largest:
   1. the communication patterns one at a time as explicit shard_map
@@ -19,9 +20,8 @@ It shows, smallest to largest:
      overlap-save PC, all_to_all MTD;
   2. the complete frame pipeline GSPMD-sharded over (ch, cpi) with
      single-device parity (parallel/sharded.py);
-  3. a dp-sharded frame batch and the dp x (ch, cpi) composition — the
-     real-pod layout: dp across hosts on DCN, model axes on ICI
-     (parallel/dp.py).
+  3. a dp-sharded frame batch and the dp x (ch, cpi) composition — dp
+     across hosts, model axes within a host (parallel/dp.py).
 
 Run: python examples/07_multichip_sharding.py
 """
@@ -86,8 +86,7 @@ print(f"dbf psum over ch=8: iq{tuple(iq.shape)} -> beams{tuple(beams.shape)}")
 # 1b. Range-sharded overlap-save pulse compression: each shard convolves
 #     its block of fast-time samples, importing the trailing len(h)-1
 #     samples of its LEFT neighbor over a ppermute ring (the
-#     ring-attention analog; halo_impl="rdma" swaps in the hand-scheduled
-#     Pallas make_async_remote_copy ring on real TPU meshes).
+#     ring-attention analog).
 mesh_r = make_mesh(cpi=8)
 h = np.asarray(pre.tx_pulse, np.complex64)[:33]
 x = jnp.asarray(rng.normal(size=(4, 512))
@@ -141,8 +140,8 @@ tb = jax.tree.map(lambda x: jnp.broadcast_to(x[None], (8,) + x.shape),
 out = jax.block_until_ready(proc_dp(keys, tb))
 print(f"dp=8 frame batch: raw={[int(v) for v in out.num_raw_detections]}")
 
-# 3b. The real-pod layout: the batch axis sharded over dp (DCN), each
-#     frame internally sharded over (ch, cpi) (ICI).
+# 3b. The composition: the batch axis sharded over dp, each frame
+#     internally sharded over (ch, cpi).
 proc_comp = make_dp_sharded_frame_processor(cfg, mesh, pre)
 keys4 = jnp.stack([jax.random.fold_in(key, 100 + i) for i in range(4)])
 tb4 = jax.tree.map(lambda x: jnp.broadcast_to(x[None], (4,) + x.shape),

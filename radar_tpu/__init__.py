@@ -1,6 +1,6 @@
-"""radar_tpu — TPU-native phased-array radar simulation & detection framework.
+"""radar_tpu — phased-array radar simulation & detection framework on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``XuZerui2023/Radar-Signal-Simulation-and-Target-Detection`` (see SURVEY.md):
 LFM echo synthesis, digital beamforming, segmented pulse compression, MTD,
 GOCA-CFAR detection, spline/monopulse measurement, two-stage clustering,

@@ -1,7 +1,7 @@
 """Vectorized NumPy/SciPy single-frame reference chain.
 
 The reference publishes no benchmark numbers (BASELINE.md), so the bench's
-``vs_baseline`` compares the TPU pipeline against this faithful CPU
+``vs_baseline`` compares the device pipeline against this faithful CPU
 implementation of the same processing chain (echo synthesis -> DBF -> PC ->
 MTD -> CFAR -> measurement), vectorized the way a tuned MATLAB implementation
 would be. Detection post-processing beyond the CFAR mask is excluded on both

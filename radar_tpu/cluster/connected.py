@@ -3,11 +3,10 @@
 The reference implements BFS flood fill three times (intra-beam
 fun_process_single_frame.m:302-352, inter-beam :355-407, inter-frame
 main_simulate_echoes_with_array_v8_3.m:253-335). Connected components are
-order-independent, so the TPU formulation replaces BFS with masked min-label
+order-independent, so the array formulation replaces BFS with masked min-label
 propagation plus pointer jumping over the gate-adjacency matrix: fixed
 [cap, cap] shapes, a lax.while_loop to fixpoint — no data-dependent
-Python control flow (SURVEY.md section 7.4 "Irregular algorithms on
-TPU").
+Python control flow (SURVEY.md section 7.4 "Irregular algorithms").
 
 A cluster's label is the smallest member index; merge helpers reduce fields
 per label with either power-weighted means (stage 1, ref :339-351) or

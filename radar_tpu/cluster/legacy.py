@@ -9,7 +9,7 @@ indices, converted to physical units by linear interpolation of the axes
 (MATLAB ``interp1(1:N, axis, centroid_idx)``). No angle estimation and no
 second anti-ghost stage existed yet at v5.
 
-TPU-native formulation: the BFS stack becomes the same fixed-capacity
+Array formulation: the BFS stack becomes the same fixed-capacity
 min-label propagation used by the staged clusterers (cluster/connected.py);
 the centroid + interp are masked segment reductions."""
 

@@ -1,4 +1,4 @@
-"""Typed configuration tree for the TPU-native radar framework.
+"""Typed configuration tree for the radar framework.
 
 Replaces the copy-pasted MATLAB struct blocks of the reference drivers
 (``config.Sig_Config`` at main_simulate_echoes_with_array_v8_3.m:68-84,
@@ -102,9 +102,9 @@ class CfarParams:
     # Fixed detection capacity for jit-static shapes (SURVEY.md section 7.4).
     max_detections: int = 512
     # Window-mean formulation for the RANGE axis (the 3404-gate axis, where
-    # the work is): "shift" = statically-unrolled VPU shift-adds, exactly
+    # the work is): "shift" = statically-unrolled shift-adds, exactly
     # the oracle's fp order (cell-exact tests); "matmul" = blocked
-    # banded-stencil MXU matmul (the ops/pulse_compression.py trick applied
+    # banded-stencil matmul (the ops/pulse_compression.py trick applied
     # to the box filters) — same means up to f32 summation order (~1 ULP),
     # so individual mask cells sitting within float rounding of the
     # threshold may flip; Pfa is re-validated for this variant in
@@ -139,8 +139,9 @@ class ClusterParams:
     # Stage-2 (inter-beam anti-ghost) velocity gate override. The
     # reference reuses max_vel_sep=0.4 m/s for BOTH stages
     # (fun_process_single_frame.m:361); tracking-MC diagnosis
-    # (results/tracking_mc.json ghost_tracks): elevation-sidelobe ghosts
-    # of an edge-of-fan target slip the merge when their velocity
+    # (git show dc6ffd7:results/tracking_mc.json ghost_tracks):
+    # elevation-sidelobe ghosts of an edge-of-fan target slip the merge
+    # when their velocity
     # estimate differs by >0.4 m/s from the main lobe's, surviving as
     # false tracks. Setting e.g. 1.0 widens ONLY the anti-ghost merge
     # (cross-beam, same range) without touching stage-1 target
@@ -241,54 +242,24 @@ class RadarConfig:
     # :280-281), built per SURVEY.md section 7.1 ("optionally at refined
     # indices"). Default False: the flaw is the shipped reference
     # behavior; the A/B accuracy delta is measured in
-    # results/monopulse_refined_ab.json.
+    # git show dc6ffd7:results/monopulse_refined_ab.json.
     monopulse_refined: bool = False
     # Sliding-CPI window slices per frame for the two-frame real-data MTD
     # (main_test_with_simulated_data.m:80 config.mtd.win_size; see
     # pipeline/stages.stage2_mtd_windowed)
     mtd_win_size: int = 4
     # MTD backend: "matmul" (constant DFT matrix with window+fftshift
-    # folded, MXU) or "fft"
+    # folded) or "fft"
     mtd_method: str = "matmul"
-    # Pulse-compression backend: "matmul" (banded-Toeplitz MXU matmuls,
-    # exact direct convolution, fastest on TPU) or "fft" (frequency-domain
-    # fast convolution, the reference's formulation)
+    # Pulse-compression backend: "matmul" (banded-Toeplitz matmuls, exact
+    # direct convolution) or "fft" (frequency-domain fast convolution, the
+    # reference's formulation)
     pc_method: str = "matmul"
-    # pallas_prng + lowrank only: the fused kernel ALSO emits the
-    # adjacent-beam sum maps from its resident f32 tiles ([pairs, V, G]),
-    # removing the pair_sum_maps pass and its full-RDM read; the detection
-    # tail runs on the qvg layout (only the bool mask is relaid to the
-    # reference scan order). sqrt(re^2+im^2) vs abs(complex): ULP-level.
-    kernel_maps: bool = False
-    # Run the 2D GOCA-CFAR as a standalone Pallas kernel over qvg pair-sum
-    # maps (ops/pallas_kernels.py::goca_cfar_qvg_pallas): the kernel reads
-    # each map cell ~1.5x and writes only the 1-byte mask + the
-    # extraction's row counts, vs XLA's halo-amplified fused-loop re-reads;
-    # the detection tail runs the qvg layout. Detections bit-identical to
-    # the jnp formulation (same fp add order). Takes precedence over
-    # tail_from_rdm. TPU only (interpret-mode on CPU is for tests, not
-    # speed).
-    use_pallas_cfar: bool = False
-    # AWGN backend: "threefry" (jax.random, bit-reproducible across
-    # backends, measured fastest on v5e) or "pallas" (fused on-core
-    # hardware-PRNG kernel, ops/pallas_noise.py; TPU only)
-    noise_impl: str = "threefry"
     # PRNG family for the beam-space/white noise draws: "threefry"
-    # (bit-reproducible everywhere) or "rbg" (XLA RngBitGenerator, ~1.6x
-    # faster on TPU; deterministic per compiled program but not guaranteed
-    # stable across compiler versions)
+    # (bit-reproducible everywhere) or "rbg" (XLA RngBitGenerator;
+    # deterministic per compiled program but not guaranteed stable across
+    # compiler versions)
     noise_prng: str = "threefry"
-    # Distribution of the white noise driving the Pallas noise-RDM path:
-    # "normal" (exact CN(0,1), erfinv transform) or "uniform" (zero-mean
-    # unit-variance uniform rails straight from PRNG bits, no erfinv —
-    # measured 0.36 ms/frame cheaper on v5e). Every draw is contracted
-    # through >= 10k weighted terms (PC window x 332 MTD pulses) before the
-    # first nonlinearity, so by CLT the noise RDM is Gaussian with the SAME
-    # first/second moments either way (excess kurtosis ~ -1.2/N_eff <
-    # 1e-3); validated end-to-end by the SNR-sweep statistics
-    # (results/snr_sweep_uniform.json). Only consulted by
-    # noise_rdm_impl="pallas"; "pallas_prng" requires "uniform".
-    noise_dist: str = "normal"
     # Fuse echo synthesis + DBF into beam space: the signal is contracted
     # with the DBF weights per target before the big outer product (exact
     # algebra) and AWGN is drawn directly in beam space from the Cholesky
@@ -316,9 +287,8 @@ class RadarConfig:
     # Detection-index extraction: "direct" (first_k_true_vgq — (pair,gate)
     # rows of width V computed in the producer layout, no bool relayout /
     # padded copy) or "rowfetch" (padded 4096-wide rows over the
-    # transposed ravel). Bit-identical outputs; direct measures 3.06 ->
-    # 2.39 ms/frame e2e on v5e (results/extract_impl_ab.json) and is the
-    # default; rowfetch kept as the reference formulation
+    # transposed ravel). Bit-identical outputs; direct is the default,
+    # rowfetch is kept as the reference formulation
     extract_impl: str = "direct"
     # Gather detection amplitudes and estimation stencils pointwise from
     # the complex RDM instead of the materialized pair-sum maps (identical
@@ -326,35 +296,10 @@ class RadarConfig:
     # pair-sum cube as an input of the CFAR box filters only (XLA can fuse
     # it away). Requires extract_impl="direct"; vgq tail only.
     tail_from_rdm: bool = False
-    # lowrank noise-RDM backend: "xla" (banded-Toeplitz PC + MTD matmul +
-    # mix, three stages), "pallas" (ops/pallas_rdm.py fused one-pass
-    # kernel with double-buffered window DMA; TPU only), or "pallas_prng"
-    # (same fused kernel but the white noise is drawn INSIDE the kernel by
-    # the on-core hardware PRNG, keyed per (frame, segment, beam, chunk) —
-    # no white cube in HBM at all; requires noise_dist="uniform";
-    # bit/statistics validation vs "pallas": results/rdm_gen.json)
-    noise_rdm_impl: str = "xla"
-    # Keep the detection tail in the Pallas kernel's beams-major layout
-    # (lowrank+pallas path only): RDM stays [B, V, G] (no transposed
-    # complex copy out of the kernel) and the pair-sum maps / CFAR mask are
-    # [pairs, G, V], whose native ravel IS the reference's
-    # (pair, range, velocity)-major detection order — the 13.6M-bool
-    # relayout in extract_detections disappears too. Identical detections
-    # (same arithmetic, same order) as the reference layout.
-    beams_major_tail: bool = False
-    # bf16 output planes for the SIGNAL-FUSED noise-RDM kernel
-    # (noise_rdm_impl="pallas"/"pallas_prng" with lowrank signal fusion):
-    # halves the RDM write + every downstream read (pair-sum, CFAR,
-    # estimation gathers) at the cost of bf16-quantizing the signal too
-    # (~2^-9 relative; the noise-only kernel already shipped bf16 out
-    # before signal fusion moved it to f32 planes). Measured NEUTRAL e2e
-    # (1.002x, results/kernel_out_bf16_ab.json) — f32 stays the default:
-    # strictly more accurate at zero measured cost. Estimation stays f32
-    # (upcast hardening in measure/estimate.py).
-    kernel_out_bf16: bool = False
     # Precision of the heavy constant matmuls (MTD DFT, banded-Toeplitz PC):
-    # "f32" = complex64 throughout; "bf16" = bf16 multiply planes with f32
-    # accumulation (~2x MXU rate, ~2^-9 input quantization; ops/precision.py)
+    # "f32" = complex64 throughout at lax.Precision.HIGHEST (no TF32 on the
+    # GPU); "bf16" = bf16 multiply planes with f32 accumulation (~2^-9 input
+    # quantization; ops/precision.py)
     matmul_precision: str = "f32"
 
     def replace(self, **kw) -> "RadarConfig":
@@ -387,27 +332,20 @@ def full_config() -> RadarConfig:
     return RadarConfig()
 
 
-# The flagship perf configuration (bench.py / __graft_entry__ / --perf
-# CLIs): fused beam-space synthesis, rank-K closed-form signal RDM with
-# post-MTD noise mixing, bf16 MXU matmuls, rbg PRNG, fused Pallas noise-RDM
-# kernel driven by uniform white rails. Every entry is statistically
-# validated in results/ (see ARCHITECTURE.md "perf-path algebra").
+# The flagship perf configuration (bench.py / chip_smoke.py /
+# __graft_entry__ / --perf CLIs): fused beam-space synthesis, rank-K
+# closed-form signal RDM with post-MTD noise mixing, bf16 matmul planes and
+# the rbg PRNG, all as plain XLA (pipeline/lowrank.py). Every entry is
+# statistically validated in results/ (see ARCHITECTURE.md "perf-path
+# algebra").
 PERF_OVERRIDES = dict(fused_synth_dbf=True, lowrank_rdm=True,
-                      matmul_precision="bf16", noise_prng="rbg",
-                      noise_rdm_impl="pallas_prng", noise_dist="uniform")
+                      matmul_precision="bf16", noise_prng="rbg")
 
 
-def perf_config(base: RadarConfig | None = None,
-                pallas: bool = True) -> RadarConfig:
-    """full_config() (or ``base``) with the perf-path overrides applied.
-
-    ``pallas=False`` keeps the XLA lowrank chain instead of the fused
-    Pallas kernel — the right choice on CPU, where the kernel only runs in
-    (slow) interpret mode."""
-    kw = dict(PERF_OVERRIDES)
-    if not pallas:
-        del kw["noise_rdm_impl"], kw["noise_dist"]
-    return (base if base is not None else full_config()).replace(**kw)
+def perf_config(base: RadarConfig | None = None) -> RadarConfig:
+    """full_config() (or ``base``) with the perf-path overrides applied."""
+    return (base if base is not None else full_config()).replace(
+        **PERF_OVERRIDES)
 
 
 def scaled_config(channels: int = 64, pulses: int = 256) -> RadarConfig:

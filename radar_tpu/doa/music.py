@@ -1,7 +1,7 @@
 """MUSIC super-resolution DoA (SURVEY.md section 2.2: MUSIC_1D.m,
 MUSIC_2D.m, run_music_algorithm.m).
 
-TPU-first formulation: covariance as one (optionally snapshot-sharded, see
+Array formulation: covariance as one (optionally snapshot-sharded, see
 parallel/collectives.covariance_snapshot_sharded) X@X^H matmul,
 ``jnp.linalg.eigh`` for the subspace split, and the spectrum scan as a single
 [grid, C] x [C, C-M] matmul instead of the reference's per-angle loop
@@ -129,7 +129,7 @@ def regional_max_peaks_2d(spec: jnp.ndarray, num_sources: int
     """DEVICE-SIDE 8-neighborhood regional maxima + top-M selection.
 
     The 8-neighbor comparison is a stencil (eight statically-shifted
-    ``jnp.maximum``s over an -inf-padded plane, VPU-elementwise) and the
+    ``jnp.maximum``s over an -inf-padded plane, elementwise) and the
     ranking one ``lax.top_k`` over the masked flat spectrum — no host
     transfer of the [G_az, G_el] plane, which matters at the fine-grid
     128-element scale (BASELINE.json config 4). Returns ``(flat_idx [M],

@@ -8,13 +8,13 @@ angle-grid scan with closed-form extraction, which removes the grid-
 resolution floor (MUSIC's 0.1-deg scan step) and the [grid, C] spectrum
 matmul entirely.
 
-TPU/host boundary: the heavy op — covariance accumulation over the
+Device/host boundary: the heavy op — covariance accumulation over the
 [C, K] snapshots (optionally snapshot-sharded via
 parallel/collectives.covariance_snapshot_sharded) — runs on device; the
 [C, C] eigendecomposition and the closed-form tails (polynomial root
 finding / [M, M] non-Hermitian eigs) run on HOST in float64
-(:func:`_host_eigvecs_f64`): TPUs have no non-symmetric eigensolver OR
-float64, and the tails are numerically fragile at float32 (a complex64
+(:func:`_host_eigvecs_f64`): XLA has no non-symmetric eigensolver on
+accelerators, the device path runs float32, and the tails are numerically fragile at float32 (a complex64
 subspace flips ~2/3 of 128-element coherent-pair trials) while costing
 microseconds on host at [C, C] scale.
 
@@ -43,8 +43,8 @@ def _host_eigvecs_f64(r) -> np.ndarray:
     covariance promoted to f64 before the eigendecomposition is stable
     (0/20 failures, results/doa_accuracy.json methodology). The [C, C]
     eigh is microseconds on host; the heavy [C, K] covariance matmul
-    stays on device. TPUs have no f64, so this is the only reliable
-    recipe for TPU-resident snapshots."""
+    stays on device. Device-resident snapshots are float32, so this is the
+    reliable recipe for them."""
     r64 = np.asarray(r).astype(np.complex128)
     r64 = 0.5 * (r64 + r64.conj().T)      # exact Hermitian symmetrization
     _, vecs = np.linalg.eigh(r64)
@@ -242,7 +242,7 @@ def esprit_2d(x: jnp.ndarray, num_sources: int, nx: int, ny: int,
     residual of BOTH T^-1 Psi_{x,y} T is checked and further fixed
     combinations are tried on degeneracy, then u_m, v_m read off the
     diagonals — no az/el association search. Heavy ops (covariance +
-    eigh) on device; the [M, M] tail on host (no TPU non-symmetric eig).
+    eigh) on device; the [M, M] tail on host (no device non-symmetric eig).
     Returns [M, 2] (az_deg, el_deg) sorted by azimuth.
 
     ``smooth=(lx, ly)``: 2D forward-backward spatial smoothing
@@ -287,7 +287,7 @@ def esprit_1d(x: jnp.ndarray, num_sources: int, element_spacing: float,
     solves the total-least-squares form (eigh of the stacked [2M, 2M]
     Gram matrix — noise lives in BOTH subarray copies), ``tls=False``
     the plain least squares. The final eig is non-Hermitian [M, M] and
-    runs on host (no TPU non-symmetric eigensolver).
+    runs on host (no device non-symmetric eigensolver).
 
     ``smooth``: subarray length for :func:`spatial_smooth` (coherent
     sources; the rotational invariance then lives on the smoothed

@@ -2,7 +2,7 @@
 
 The npz ``CheckpointStore`` (io/checkpoint.py) mirrors the reference's
 per-stage ``.mat`` persistence for host arrays. This module adds the
-TPU-native half the reference has no counterpart for: checkpointing
+device-side half the reference has no counterpart for: checkpointing
 SHARDED device arrays — each host/device writes its own shards (no
 all-gather to host 0), and restore re-materializes the arrays with the
 same ``jax.sharding`` layout, so a multi-chip frame loop or streaming

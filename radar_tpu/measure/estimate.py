@@ -14,7 +14,7 @@ Reference (fun_process_single_frame.m:226-299): for each CFAR detection,
     The v7.6 variant uses the complex RDM values instead of magnitudes
     (main_plot_snr_vs_angle_error.m:455-458) — ``monopulse_complex=True``.
 
-TPU-first formulation: spline interpolation is linear in the data, so the
+Array formulation: spline interpolation is linear in the data, so the
 whole upsample collapses to one small precomputed matrix (utils.signal.
 spline_upsample_matrix) applied to all detections' stencils at once — two
 [cap, 5] x [5, Q] matmuls and an argmax replace the reference's per-detection
@@ -26,8 +26,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax import lax
 
 from ..ops.cfar import Detections
+
+_HIGHEST = lax.Precision.HIGHEST  # full f32 (no TF32) on the GPU
 
 
 class ParamDetections(NamedTuple):
@@ -43,10 +46,9 @@ class ParamDetections(NamedTuple):
 
 
 def _stencil_gather(maps: jnp.ndarray, v_idx, r_idx, pair_idx, extra: int,
-                    axis: str, layout: str = "vgq") -> jnp.ndarray:
+                    axis: str) -> jnp.ndarray:
     """Gather the +/-extra cell stencil along range ('r') or Doppler ('v')
-    of the pair-sum cube ([V, G, pairs] or, ``layout="qgv"``,
-    [pairs, G, V]) -> [cap, 2*extra+1].
+    of the [V, G, pairs] pair-sum cube -> [cap, 2*extra+1].
 
     Edge handling: range stencils CLIP to the map edge, Doppler stencils
     WRAP (the fftshifted Doppler axis is circular — row 0's true
@@ -58,20 +60,6 @@ def _stencil_gather(maps: jnp.ndarray, v_idx, r_idx, pair_idx, extra: int,
     a segment edge carries a documented up-to-~1-cell refinement bias
     (the reference's own interp1 behaves no better there)."""
     offs = jnp.arange(-extra, extra + 1)
-    if layout == "qgv":
-        if axis == "r":
-            cells = jnp.clip(r_idx[:, None] + offs[None, :], 0,
-                             maps.shape[1] - 1)
-            return maps[pair_idx[:, None], cells, v_idx[:, None]]
-        cells = jnp.mod(v_idx[:, None] + offs[None, :], maps.shape[2])
-        return maps[pair_idx[:, None], r_idx[:, None], cells]
-    if layout == "qvg":   # [pairs, V, G] (fused-kernel map output)
-        if axis == "r":
-            cells = jnp.clip(r_idx[:, None] + offs[None, :], 0,
-                             maps.shape[2] - 1)
-            return maps[pair_idx[:, None], v_idx[:, None], cells]
-        cells = jnp.mod(v_idx[:, None] + offs[None, :], maps.shape[1])
-        return maps[pair_idx[:, None], cells, r_idx[:, None]]
     if axis == "r":
         cells = jnp.clip(r_idx[:, None] + offs[None, :], 0,
                          maps.shape[1] - 1)
@@ -106,21 +94,17 @@ def _spline_peak_offset(stencil: jnp.ndarray, q: jnp.ndarray,
     stencil, plus the integer index of that peak on the upsampled grid
     (consumed by the refined-index monopulse). q is the
     [(2*extra)*times+1, 2*extra+1] upsample matrix."""
-    up = stencil @ q.T  # [cap, Q]
+    up = jnp.matmul(stencil, q.T, precision=_HIGHEST)  # [cap, Q]
     i = jnp.argmax(up, axis=1)
     return i.astype(stencil.dtype) / times - extra, i
 
 
-def _stencil_gather_2d(rdm: jnp.ndarray, beam, v_idx, r_idx, extra: int,
-                       layout: str) -> jnp.ndarray:
+def _stencil_gather_2d(rdm: jnp.ndarray, beam, v_idx, r_idx,
+                       extra: int) -> jnp.ndarray:
     """[cap, 2e+1 (v), 2e+1 (r)] stencil of one beam's complex RDM around
     each detection (range clipped / Doppler wrapped like the 1D
     gathers)."""
     offs = jnp.arange(-extra, extra + 1)
-    if layout == "bvg":
-        vc = jnp.mod(v_idx[:, None] + offs[None, :], rdm.shape[1])
-        rc = jnp.clip(r_idx[:, None] + offs[None, :], 0, rdm.shape[2] - 1)
-        return rdm[beam[:, None, None], vc[:, :, None], rc[:, None, :]]
     vc = jnp.mod(v_idx[:, None] + offs[None, :], rdm.shape[0])
     rc = jnp.clip(r_idx[:, None] + offs[None, :], 0, rdm.shape[1] - 1)
     return rdm[vc[:, :, None], rc[:, None, :], beam[:, None, None]]
@@ -134,10 +118,11 @@ def _value_at_refined(st2: jnp.ndarray, q_r: jnp.ndarray, q_v: jnp.ndarray,
     to each beam (spline interpolation is linear in the data, so the 2D
     evaluation is two small matmuls + gathers)."""
     cap = st2.shape[0]
-    rows = jnp.einsum("cvr,qr->cvq", st2, q_r)        # upsample along r
+    rows = jnp.einsum("cvr,qr->cvq", st2, q_r,
+                      precision=_HIGHEST)             # upsample along r
     at_r = rows[jnp.arange(cap)[:, None],
                 jnp.arange(st2.shape[1])[None, :], i_r[:, None]]  # [cap, 5v]
-    cols = at_r @ q_v.T                               # upsample along v
+    cols = jnp.matmul(at_r, q_v.T, precision=_HIGHEST)  # upsample along v
     return cols[jnp.arange(cap), i_v]
 
 
@@ -145,23 +130,11 @@ def estimate_parameters(dets: Detections, pair_maps: jnp.ndarray,
                         rdm: jnp.ndarray, precomp_dev,
                         extra_dots: int, r_times: int, v_times: int,
                         monopulse_complex: bool = False,
-                        layout: str = "vgb",
-                        maps_layout: str | None = None,
                         monopulse_refined: bool = False) -> ParamDetections:
-    """dets: CFAR output; pair_maps: [V,G,pairs] real sum maps; rdm:
-    [V,G,beams] complex; precomp_dev: DevicePrecomputed arrays.
-
-    ``layout="bvg"`` (beams-major tail): pair_maps are [pairs,G,V] and rdm
-    is [beams,V,G]; identical arithmetic, permuted gathers. An explicit
-    ``maps_layout`` ("vgq"/"qgv"/"qvg") overrides the default pairing —
-    the fused-kernel map path (cfg.kernel_maps) uses rdm "bvg" with maps
-    "qvg"."""
-    if maps_layout is None:
-        maps_layout = "qgv" if layout == "bvg" else "vgq"
+    """dets: CFAR output; pair_maps: [V,G,pairs] real sum maps, or None to
+    gather the stencils from the RDM (cfg.tail_from_rdm); rdm: [V,G,beams]
+    complex; precomp_dev: DevicePrecomputed arrays."""
     from_rdm = pair_maps is None
-    if from_rdm and layout != "vgb":
-        raise ValueError("pair_maps=None (tail_from_rdm) needs rdm layout "
-                         "'vgb'")
     # consts may arrive as host numpy (embedded as XLA constants at trace
     # time); coerce so tracer-indexed gathers work
     rx = jnp.asarray(precomp_dev.range_axis)
@@ -180,7 +153,7 @@ def estimate_parameters(dets: Detections, pair_maps: jnp.ndarray,
             return _stencil_gather_rdm(rdm, dets.v_idx, dets.r_idx,
                                        dets.pair_idx, extra_dots, axis)
         return _stencil_gather(pair_maps, dets.v_idx, dets.r_idx,
-                               dets.pair_idx, extra_dots, axis, maps_layout)
+                               dets.pair_idx, extra_dots, axis)
 
     q_r = jnp.asarray(precomp_dev.q_range, real_dtype)
     q_v = jnp.asarray(precomp_dev.q_vel, real_dtype)
@@ -197,12 +170,12 @@ def estimate_parameters(dets: Detections, pair_maps: jnp.ndarray,
         # beam's surface interpolated (separably, same not-a-knot cubic)
         # at the sum-map peak found above — the flaw-fixed variant
         # (cfg.monopulse_refined; SURVEY 7.1 "optionally at refined
-        # indices"; A/B delta in results/monopulse_refined_ab.json)
-        rl = "bvg" if layout == "bvg" else "vgb"
+        # indices"; A/B delta in git show
+        # dc6ffd7:results/monopulse_refined_ab.json)
         st_a = _stencil_gather_2d(rdm, dets.pair_idx, dets.v_idx,
-                                  dets.r_idx, extra_dots, rl)
+                                  dets.r_idx, extra_dots)
         st_b = _stencil_gather_2d(rdm, dets.pair_idx + 1, dets.v_idx,
-                                  dets.r_idx, extra_dots, rl)
+                                  dets.r_idx, extra_dots)
         if not monopulse_complex:
             st_a, st_b = jnp.abs(st_a), jnp.abs(st_b)
         st_a = st_a.astype(real_dtype if not monopulse_complex
@@ -214,12 +187,8 @@ def estimate_parameters(dets: Detections, pair_maps: jnp.ndarray,
                                 q_v.astype(st_b.dtype), i_r, i_v)
     else:
         # monopulse at integer indices (reference flaw preserved)
-        if layout == "bvg":
-            s_a = rdm[dets.pair_idx, dets.v_idx, dets.r_idx]
-            s_b = rdm[dets.pair_idx + 1, dets.v_idx, dets.r_idx]
-        else:
-            s_a = rdm[dets.v_idx, dets.r_idx, dets.pair_idx]
-            s_b = rdm[dets.v_idx, dets.r_idx, dets.pair_idx + 1]
+        s_a = rdm[dets.v_idx, dets.r_idx, dets.pair_idx]
+        s_b = rdm[dets.v_idx, dets.r_idx, dets.pair_idx + 1]
         if not monopulse_complex:
             s_a, s_b = jnp.abs(s_a), jnp.abs(s_b)
     eps = jnp.finfo(real_dtype).eps

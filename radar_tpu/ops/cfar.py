@@ -12,11 +12,11 @@ two-dimensional greatest-of cell-averaging detector estimates noise as
 with guard_R/guard_V guard cells, and border cells (closer than ref+guard to
 any edge) never tested.
 
-TPU-first formulation: the reference's per-cell window loops are O(window)
+Array formulation: the reference's per-cell window loops are O(window)
 shift-and-add reductions over the whole cube — every cell's leading/trailing
 window mean is computed with ``ref`` statically-unrolled shifted adds (exact
 fp-order-stable, unlike a cumsum-difference formulation), so the entire
-detector is elementwise VPU work with no data-dependent control flow.
+detector is elementwise work with no data-dependent control flow.
 
 Detections leave the device as a fixed-capacity index list
 (``extract_detections``) ordered (pair, range, velocity)-major — the same
@@ -85,10 +85,9 @@ def _banded_means_matrix(guard: int, ref: int, tile: int) -> "np.ndarray":
 
 
 def lead_trail_means_matmul(x: jnp.ndarray, guard: int, ref: int, axis: int,
-                            tile: int = 128,
-                            precision=None) -> tuple[jnp.ndarray,
-                                                     jnp.ndarray]:
-    """MXU formulation of :func:`lead_trail_means`: the window-sum box
+                            tile: int = 128) -> tuple[jnp.ndarray,
+                                                      jnp.ndarray]:
+    """Matmul formulation of :func:`lead_trail_means`: the window-sum box
     filters as a blocked banded-stencil matmul (the same restructuring
     ops/pulse_compression.py uses for the matched filter, applied to the
     CFAR reference windows; ref fun_process_single_frame.m:192-213 computes
@@ -96,23 +95,21 @@ def lead_trail_means_matmul(x: jnp.ndarray, guard: int, ref: int, axis: int,
 
     Each ``tile``-wide output block contracts a ``tile + 2*(guard+ref)``
     input window against one constant [window, 2*tile] matrix — both lead
-    and trail means of a block come out of a single MXU pass. Cost is
+    and trail means of a block come out of a single matmul pass. Cost is
     ``2 * (tile + 2*halo)`` MACs per cell (~4.3 GMAC at the full frame
     size with tile=128), traded against :func:`lead_trail_means`'s
-    ``2*ref`` VPU add-passes over the whole cube.
+    ``2*ref`` elementwise add-passes over the whole cube.
 
-    Equal to :func:`lead_trail_means` up to f32 summation order: the MXU
+    Equal to :func:`lead_trail_means` up to f32 summation order: the matmul
     accumulates each window in one pass, the shift-add formulation in
     ``ref`` ordered adds. Zero fill at the borders is identical, and the
     summation-order difference is Pfa-invisible (measured on identical
     draws, results/pfa_matmul_recheck.json).
 
-    Measured NEGATIVE e2e (results/pallas_cfar_ab.json): 2.38 -> 3.35
-    ms/frame in the perf pipeline — the blocked-window ``jnp.stack``
-    materializes a (tile+2*halo)/tile-amplified copy of the whole cube
-    before the einsum, and that relayout traffic swamps the 0.29 ms VPU
-    stage it replaces. Ships as ``CfarParams.means_impl="matmul"``;
-    the default stays "shift".
+    The blocked-window ``jnp.stack`` materializes a
+    (tile+2*halo)/tile-amplified copy of the whole cube before the einsum,
+    which is why the default stays "shift"; this formulation ships as
+    ``CfarParams.means_impl="matmul"``.
     """
     halo = guard + ref
     xm = jnp.moveaxis(x, axis, -1)
@@ -125,7 +122,7 @@ def lead_trail_means_matmul(x: jnp.ndarray, guard: int, ref: int, axis: int,
                               axis=-1) for t in range(n_tiles)], axis=-2)
     w = _banded_means_matrix(guard, ref, tile)
     y = jnp.einsum("...tm,ml->...tl", blocks, jnp.asarray(w, x.dtype),
-                   precision=precision,
+                   precision=jax.lax.Precision.HIGHEST,
                    preferred_element_type=x.dtype)   # [..., n_tiles, 2*tile]
     flat = xm.shape[:-1] + (n_tiles * tile,)
     lead = y[..., :tile].reshape(flat)[..., :n]
@@ -150,27 +147,14 @@ def pair_sum_maps(rdm: jnp.ndarray) -> jnp.ndarray:
     return mag[:, :, :-1] + mag[:, :, 1:]
 
 
-def pair_sum_maps_bm(rdm_bm: jnp.ndarray) -> jnp.ndarray:
-    """Beams-major variant: [B, V, G] complex -> [B-1, G, V] real sum maps.
-
-    Same arithmetic as :func:`pair_sum_maps`; the output is laid out
-    (pair, range, velocity)-major so the CFAR mask's native ravel already
-    matches the reference's detection scan order (ref :215-221) — no bool
-    relayout in :func:`extract_detections`."""
-    mag = jnp.abs(rdm_bm)
-    return jnp.transpose(mag[:-1] + mag[1:], (0, 2, 1))
-
-
-def goca_noise_and_valid(maps: jnp.ndarray, params: CfarParams,
-                         layout: str = "vgq") -> tuple[jnp.ndarray,
-                                                       jnp.ndarray]:
+def goca_noise_and_valid(maps: jnp.ndarray, params: CfarParams
+                         ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """The 2D cross noise estimate max(noise_R, noise_V) and the
     border-validity mask (True = testable cell), before the threshold
     factor is applied. Exposed separately so Pfa calibration
     (ops/cfar_analysis.py) can sweep threshold factors over one noise
-    computation."""
-    r_axis, v_axis = {"vgq": (1, 0), "qgv": (1, 2),
-                      "qvg": (2, 1)}[layout]
+    computation. ``maps`` are [V, G, pairs]."""
+    r_axis, v_axis = 1, 0
     if params.means_impl == "matmul":
         lead_r, trail_r = lead_trail_means_matmul(
             maps, params.guard_cells_r, params.ref_cells_r, axis=r_axis)
@@ -190,27 +174,18 @@ def goca_noise_and_valid(maps: jnp.ndarray, params: CfarParams,
                                               < num_r - border_r)
     v_ok = (jnp.arange(num_v) >= border_v) & (jnp.arange(num_v)
                                               < num_v - border_v)
-    if layout == "vgq":
-        valid = v_ok[:, None, None] & r_ok[None, :, None]
-    elif layout == "qgv":
-        valid = r_ok[None, :, None] & v_ok[None, None, :]
-    else:
-        valid = v_ok[None, :, None] & r_ok[None, None, :]
+    valid = v_ok[:, None, None] & r_ok[None, :, None]
     return noise, valid
 
 
-def goca_cfar_2d(maps: jnp.ndarray, params: CfarParams,
-                 layout: str = "vgq") -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Detection mask and threshold map for pair-sum maps.
+def goca_cfar_2d(maps: jnp.ndarray, params: CfarParams
+                 ) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """Detection mask and threshold map for [V, G, pairs] pair-sum maps.
 
-    ``layout="vgq"``: maps are [V, G, pairs] (default). ``layout="qgv"``:
-    maps are [pairs, G, V] (the beams-major tail). ``layout="qvg"``:
-    maps are [pairs, V, G] (the fused kernel's native map output,
-    cfg.kernel_maps). Returns (mask bool, threshold), in the input
-    layout; border cells are always False in the mask (threshold map
-    holds garbage there).
+    Returns (mask bool, threshold); border cells are always False in the
+    mask (threshold map holds garbage there).
     """
-    noise, valid = goca_noise_and_valid(maps, params, layout)
+    noise, valid = goca_noise_and_valid(maps, params)
     threshold = params.threshold_factor * noise
     mask = (maps > threshold) & valid
     return mask, threshold
@@ -234,11 +209,11 @@ def first_k_true_indices(flat: jnp.ndarray, capacity: int,
     """Ascending flat indices of the first ``capacity`` True entries of a
     large boolean vector, plus a validity mask.
 
-    Equivalent to ``jnp.nonzero(flat, size=capacity)`` but TPU-shaped: a
+    Equivalent to ``jnp.nonzero(flat, size=capacity)`` but gather-free: a
     plain nonzero lowers to a giant 1-D scan and ``top_k`` over negated
     indices lowers to a full 13M-element sort — both dominate frame time.
     Here the vector is tiled into rows; per-slot binary search over the
-    row-count prefix sum finds each hit's row, a one-hot matmul (MXU)
+    row-count prefix sum finds each hit's row, a one-hot matmul
     fetches the 512 relevant rows, and a lane-axis cumsum locates the hit
     inside its row. All pieces are O(n) elementwise or tiny.
     """
@@ -278,7 +253,7 @@ def first_k_true_vgq(mask: jnp.ndarray, capacity: int
 
     Rows are (pair, gate) pairs of width V: the per-row counts reduce over
     the leading mask axis (fusable into the CFAR elementwise graph), the
-    ≤cap hit rows are fetched with a gate-axis one-hot MXU contraction
+    ≤cap hit rows are fetched with a gate-axis one-hot contraction
     straight against the [V, G, Q] cube (the layout permutation folds into
     the dot's dimension numbers), and the within-row position is a cumsum
     over just V lanes instead of a 4096-wide padded row."""
@@ -295,9 +270,9 @@ def first_k_true_vgq(mask: jnp.ndarray, capacity: int
     r_s = jnp.clip(r_s, 0, num_rows - 1)
     q_s = r_s // num_g
     g_s = r_s % num_g
-    # fetch the selected V-columns: contract the gate axis on the MXU
+    # fetch the selected V-columns: contract the gate axis as a matmul
     # (bf16 0/1 operands, f32 accumulation of <= num_g ones: exact), then
-    # the tiny pair axis on the VPU
+    # the tiny pair axis elementwise
     onehot_g = jax.nn.one_hot(g_s, num_g, dtype=jnp.bfloat16)   # [cap, G]
     sel_g = jnp.einsum("cg,vgq->cvq", onehot_g,
                        mask.astype(jnp.bfloat16),
@@ -312,87 +287,29 @@ def first_k_true_vgq(mask: jnp.ndarray, capacity: int
     return jnp.where(valid, idx, 0), valid
 
 
-def first_k_true_beams_major(mask: jnp.ndarray, capacity: int,
-                             layout: str = "qgv",
-                             row_counts: jnp.ndarray | None = None
-                             ) -> tuple[jnp.ndarray, jnp.ndarray,
-                                        jnp.ndarray, jnp.ndarray]:
-    """Producer-layout first-K extraction for the kernel-tail masks:
-    ``layout="qgv"`` = [pairs, G, V], ``layout="qvg"`` = [pairs, V, G].
-    Rows are (pair, gate) pairs of width V in both cases — (q, g) are the
-    leading/outer coordinates of qgv and the row content of qvg is a
-    middle-axis column — so neither layout needs a bool relayout at all.
-    Returns (pair, r, v, valid) for the first ``capacity`` True cells in
-    (pair, range, velocity)-major order — bit-identical to
-    ``first_k_true_indices`` on the qgv ravel.
-
-    ``row_counts``: optional precomputed per-(pair, gate) True counts
-    ([Q, G] or flat [Q*G], e.g. emitted by the Pallas CFAR kernel) —
-    skips the mask reduction here so the mask is read only once, by the
-    row-fetch contraction."""
-    if layout == "qgv":
-        num_q, num_g, num_v = mask.shape
-        if row_counts is None:
-            row_counts = jnp.sum(mask, axis=2).astype(jnp.int32)
-        fetch = "cg,qgv->cqv"
-    else:
-        num_q, num_v, num_g = mask.shape
-        if row_counts is None:
-            row_counts = jnp.sum(mask, axis=1).astype(jnp.int32)
-        fetch = "cg,qvg->cqv"
-    row_counts = row_counts.astype(jnp.int32).ravel()
-    row_off = jnp.cumsum(row_counts) - row_counts                # [Q*G]
-    slots = jnp.arange(capacity, dtype=jnp.int32)
-    total = row_off[-1] + row_counts[-1]
-    valid = slots < jnp.minimum(total, capacity)
-    num_rows = num_q * num_g
-    r_s = (jnp.searchsorted(row_off, slots, side="right",
-                            method="compare_all") - 1).astype(jnp.int32)
-    r_s = jnp.clip(r_s, 0, num_rows - 1)
-    q_s = r_s // num_g
-    g_s = r_s % num_g
-    onehot_g = jax.nn.one_hot(g_s, num_g, dtype=jnp.bfloat16)   # [cap, G]
-    sel_g = jnp.einsum(fetch, onehot_g, mask.astype(jnp.bfloat16),
-                       preferred_element_type=jnp.float32)      # [cap,Q,V]
-    onehot_q = jax.nn.one_hot(q_s, num_q, dtype=jnp.float32)
-    rows_sel = jnp.einsum("cqv,cq->cv", sel_g, onehot_q)        # [cap, V]
-    within = jnp.cumsum(rows_sel, axis=1) - rows_sel
-    want = (slots - row_off[r_s]).astype(jnp.float32)
-    hit = (jnp.abs(within - want[:, None]) < 0.5) & (rows_sel > 0.5)
-    v_c = jnp.argmax(hit, axis=1).astype(jnp.int32)
-    return (jnp.where(valid, q_s, 0), jnp.where(valid, g_s, 0),
-            jnp.where(valid, v_c, 0), valid)
-
-
 def extract_detections(mask: jnp.ndarray, maps: jnp.ndarray | None,
                        capacity: int, native_scan: bool = False,
-                       layout: str = "vgq", impl: str = "rowfetch",
-                       rdm: jnp.ndarray | None = None,
-                       row_counts: jnp.ndarray | None = None) -> Detections:
-    """Turn a boolean detection cube into a fixed-capacity index list
-    ordered (pair, range, velocity)-major.
+                       impl: str = "rowfetch",
+                       rdm: jnp.ndarray | None = None) -> Detections:
+    """Turn a boolean [V, G, pairs] detection cube into a fixed-capacity
+    index list ordered (pair, range, velocity)-major.
 
-    ``layout="vgq"``: mask/maps are [V, G, pairs] (default).
-    ``layout="qgv"``: mask/maps are [pairs, G, V] (beams-major tail) —
-    the native ravel of this layout IS the required order, so no relayout
-    or reorder happens at all.
-
-    ``native_scan`` (vgq only) scans the cube in its native [V, G, pairs]
+    ``native_scan`` scans the cube in its native [V, G, pairs]
     layout (no 13.6M-element transposed relayout) and argsorts the <=
     capacity hits into the same (pair, range, velocity)-major order
     afterwards — identical output whenever the true count fits the capacity
     (beyond capacity the two variants keep a different — equally arbitrary —
     subset; the reference has no capacity at all).
 
-    ``impl="direct"`` (vgq only) uses :func:`first_k_true_vgq` — same
+    ``impl="direct"`` uses :func:`first_k_true_vgq` — same
     output bit for bit in ALL cases including over-capacity, computed in
     the producer layout with (pair, gate)-rows of width V.
 
-    ``rdm`` (vgq+direct only): gather the detection amplitude pointwise
+    ``rdm`` (direct only): gather the detection amplitude pointwise
     from the complex RDM (|rdm[v,r,p]| + |rdm[v,r,p+1]| — the same values
     the maps hold) so the caller never has to materialize the full
     pair-sum cube for this stage (cfg.tail_from_rdm)."""
-    if layout == "vgq" and impl == "direct" and not native_scan:
+    if impl == "direct" and not native_scan:
         num_v, num_r, num_q = mask.shape
         safe, valid = first_k_true_vgq(mask, capacity)
         pair = safe // (num_r * num_v)
@@ -406,44 +323,6 @@ def extract_detections(mask: jnp.ndarray, maps: jnp.ndarray | None,
         else:
             amp = maps[v, r, pair]
         zero = jnp.zeros((), amp.dtype)
-        return Detections(
-            v_idx=jnp.where(valid, v, 0).astype(jnp.int32),
-            r_idx=jnp.where(valid, r, 0).astype(jnp.int32),
-            pair_idx=jnp.where(valid, pair, 0).astype(jnp.int32),
-            amp=jnp.where(valid, amp, zero),
-            valid=valid,
-            count=jnp.sum(mask).astype(jnp.int32),
-        )
-    if layout in ("qgv", "qvg"):
-        if impl == "direct":
-            pair, r, v, valid = first_k_true_beams_major(mask, capacity,
-                                                         layout, row_counts)
-            amp = maps[pair, v, r] if layout == "qvg" else maps[pair, r, v]
-            zero = jnp.zeros((), maps.dtype)
-            count = (jnp.sum(mask) if row_counts is None
-                     else jnp.sum(row_counts)).astype(jnp.int32)
-            return Detections(
-                v_idx=v.astype(jnp.int32), r_idx=r.astype(jnp.int32),
-                pair_idx=pair.astype(jnp.int32),
-                amp=jnp.where(valid, amp, zero), valid=valid,
-                count=count)
-        if layout == "qvg":
-            # fused-kernel map layout [pairs, V, G]: only the bool mask is
-            # relaid to (pair, range, velocity)-major scan order (XLA fuses
-            # the 13.6M-bool transpose into the producing elementwise
-            # graph, see the beams-major-tail study); maps stay qvg
-            num_q, num_v, num_r = mask.shape
-            flat = jnp.transpose(mask, (0, 2, 1)).ravel()
-        else:
-            num_q, num_r, num_v = mask.shape
-            flat = mask.ravel()
-        safe, valid = first_k_true_indices(flat, capacity)
-        pair = safe // (num_r * num_v)
-        rem = safe % (num_r * num_v)
-        r = rem // num_v
-        v = rem % num_v
-        amp = maps[pair, v, r] if layout == "qvg" else maps[pair, r, v]
-        zero = jnp.zeros((), maps.dtype)
         return Detections(
             v_idx=jnp.where(valid, v, 0).astype(jnp.int32),
             r_idx=jnp.where(valid, r, 0).astype(jnp.int32),

@@ -16,7 +16,7 @@ adapter scripts call functions missing from the repo, SURVEY.md section 2.4):
     (edge fallback); combine GO (max, method 0) or SO (min); detect on
     ``x >= T * noise`` (>=, unlike the sim path's >).
 
-TPU formulation: the per-column loop becomes statically-unrolled shifted
+Array formulation: the per-column loop becomes statically-unrolled shifted
 adds per segment + where-selects for the edge fallback — one fused
 elementwise program over the whole [V, G, pairs] cube.
 """

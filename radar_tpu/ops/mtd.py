@@ -7,14 +7,14 @@ slow time. The v7_7 variant zero-pads to a 512-point FFT
 ``fft_len``.
 
 Here the whole [pulses, gates, beams] cube is windowed and FFT'd along axis 0
-in one call — XLA lowers the length-332 (=4*83) transform via Bluestein on
-TPU; power-of-two lengths (e.g. the 512-pad variant or 256-pulse scaled
-configs) take the fast path.
+in one call. ``mtd_matmul`` is the default formulation: the window, the DFT
+and the fftshift folded into one constant [n_dop, pulses] matrix.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 
 def mtd(pc: jnp.ndarray, mtd_win: jnp.ndarray,
@@ -32,9 +32,7 @@ def make_mtd_matrix(mtd_win, num_pulses: int,
     slow-time DFT and the fftshift row reordering folded in:
     ``rdm = einsum('vp,pgb->vgb', M, pc)`` == ``mtd(pc, win, fft_len)``.
 
-    One MXU matmul against a host-precomputed constant instead of an FFT
-    custom call (XLA's TPU FFT regenerates its twiddle factors with
-    sine/cosine on every invocation)."""
+    One matmul against a host-precomputed constant instead of an FFT."""
     import numpy as np
 
     n = fft_len or num_pulses
@@ -54,7 +52,7 @@ def mtd_matmul(pc: jnp.ndarray, mtd_matrix,
         return einsum_complex_bf16("vp,pgb->vgb", jnp.asarray(mtd_matrix),
                                    pc, out_dtype=pc.dtype)
     m = jnp.asarray(mtd_matrix, pc.dtype)
-    return jnp.einsum("vp,pgb->vgb", m, pc,
+    return jnp.einsum("vp,pgb->vgb", m, pc, precision=lax.Precision.HIGHEST,
                       preferred_element_type=pc.dtype)
 
 

@@ -1,18 +1,23 @@
-"""Mixed-precision complex contraction for the MXU.
+"""Mixed-precision complex contraction.
 
-TPU MXUs run bfloat16 multiplies at ~2x the float32 rate with float32
-accumulation. A complex64 einsum is four real einsums; casting the real and
-imaginary PLANES to bf16 (complex64 is stored planar on TPU, so the splits
-are free — verify skill) and accumulating in f32 halves the matmul time at
-the cost of input quantization only (~2^-9 relative). Used by the MTD DFT
-matmul and the banded-Toeplitz pulse-compression matmul when
-``cfg.matmul_precision == "bf16"`` — detection statistics validated in
-results/bf16_matmul.json (detections are threshold crossings with factor 8;
-a 0.2% RDM perturbation is statistically invisible).
+A complex64 einsum is four real einsums. Casting the real and imaginary
+planes to bf16 and accumulating in f32 lets the matrix units run at their
+bf16 rate, at the cost of input quantization only (~2^-9 relative). On the
+GPU complex64 is stored interleaved (re, im, re, im, ...), so the
+``real``/``imag`` splits and the ``lax.complex`` recombine are each a pass
+over the operand, not free relabelings; XLA may fuse them into the
+neighbouring producer or consumer. Used by the MTD DFT matmul and the
+banded-Toeplitz pulse-compression matmul when
+``cfg.matmul_precision == "bf16"``. Detection statistics validated in
+``git show dc6ffd7:results/bf16_matmul.json`` (detections are threshold
+crossings with factor 8; a 0.2% RDM perturbation is statistically
+invisible).
+
+The ``"f32"`` branches of those sites pass ``lax.Precision.HIGHEST``, so a
+float32 contraction is a float32 contraction on the GPU too, not TF32.
 
 No reference counterpart (the reference is float64 MATLAB end to end); this
-is a TPU-native accuracy/throughput tradeoff exposed as an explicit config
-variant.
+is an accuracy/throughput tradeoff exposed as an explicit config variant.
 """
 
 from __future__ import annotations

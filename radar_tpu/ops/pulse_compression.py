@@ -14,7 +14,7 @@ Each segment's output is indexed with *global gate indices* into that
 segment's own causal-convolution output (ref :123-126) — a reference
 convention preserved exactly.
 
-TPU-first formulation: all (pulse, beam) rows are batched into single rFFT-
+Array formulation: all (pulse, beam) rows are batched into single rFFT-
 sized complex FFTs; segments are pre-trimmed to the minimal sample span that
 influences their spliced gates (linear-convolution values are independent of
 FFT length, so trimming changes nothing numerically while cutting FFT cost;
@@ -95,9 +95,8 @@ def make_plan(precomp, trim: bool = True) -> PCPlan:
 class MatmulPlan(NamedTuple):
     """Banded-Toeplitz matmul plan: the causal convolutions become chunked
     [window, out_chunk] matmuls against host-precomputed filter matrices —
-    MXU work with constant operands, instead of FFT custom calls whose
-    twiddle factors XLA regenerates (sine/cosine over full matrices) on
-    every invocation. Numerically this is exact direct convolution.
+    matmuls with constant operands instead of FFTs. Numerically this is
+    exact direct convolution.
 
     chunks: list of (seg_start_sample, window_len, M [window_len, out_len])
     in splice order; concatenating the chunk outputs yields the full
@@ -131,10 +130,10 @@ def _toeplitz_chunks(h: np.ndarray, seg_start: int, out_lo: int, out_hi: int,
 
 
 def make_matmul_plan(precomp, chunk: int = 256) -> MatmulPlan:
-    # chunk=256 measured fastest at full frame size on v5e (256/512/1024/
-    # 2048 -> 2.59/2.67/2.78/3.05 ms for the white-noise+PC chain,
-    # results/pc_chunk.json): smaller chunks waste fewer dense MACs on the
-    # 700-tap long-segment band at still-aligned matmul shapes.
+    # ``chunk`` is the output-gate block of each banded-Toeplitz matmul:
+    # smaller chunks waste fewer dense MACs on the 700-tap long-segment
+    # band, larger ones give bigger matmuls. 256 is a plan parameter still
+    # to be re-tuned on the GPU (ROADMAP.md).
     g1, g2, _ = precomp.gate_splits
     gate_medium_end = g1 + g2
     n_total = precomp.n_total_gate
@@ -206,6 +205,7 @@ def pulse_compress_matmul(iq_beams: jnp.ndarray, mplan: MatmulPlan,
         else:
             mm = jnp.asarray(m, dtype)
             pieces.append(jnp.einsum("pwb,wj->pjb", seg, mm,
+                                     precision=jax.lax.Precision.HIGHEST,
                                      preferred_element_type=dtype))
     return jnp.concatenate(pieces, axis=1)
 

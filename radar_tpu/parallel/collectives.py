@@ -63,40 +63,27 @@ def _local_overlap_save(seg, h, halo_left, nfft):
 
 
 def pulse_compress_range_sharded(mesh: Mesh, filter_taps, nfft: int,
-                                 axis: str = "cpi",
-                                 halo_impl: str = "ppermute",
-                                 interpret: bool = False):
+                                 axis: str = "cpi"):
     """Returns jitted ``f(x [rows, S]) -> [rows, S]`` computing the causal
     linear convolution with ``filter_taps`` along fast time, with fast time
     sharded over ``axis``. Each shard sends its trailing ``len(h)-1``
     samples to its right neighbor as the overlap-save halo (halo exchange of
-    SURVEY.md section 5.7a); the first shard's halo is zeros (causal edge).
-
-    ``halo_impl``: "ppermute" (XLA collective, default) or "rdma" (the
-    hand-scheduled Pallas ``make_async_remote_copy`` ring kernel,
-    parallel/pallas_ring.py — SURVEY.md section 5.8's first-class comm
-    backend; ``interpret=True`` for the CPU test mesh). Both produce
-    bit-identical output (tests/test_pallas_ring.py).
+    SURVEY.md section 5.7a) through ``lax.ppermute``, which XLA hands to
+    the collective library of the backend (NCCL on GPUs); the first shard's
+    halo is zeros (causal edge).
     """
     h = np.asarray(filter_taps)
     lh = h.shape[0]
 
     def local(x):
-        if halo_impl == "rdma":
-            from .pallas_ring import halo_exchange_complex
-
-            halo = halo_exchange_complex(mesh, x, lh - 1, axis=axis,
-                                         interpret=interpret)
-        else:
-            n_shards = jax.lax.axis_size(axis)
-            halo_src = x[..., -(lh - 1):]
-            perm = [(i, i + 1) for i in range(n_shards - 1)]
-            halo = jax.lax.ppermute(halo_src, axis, perm)  # from shard i-1
+        n_shards = jax.lax.axis_size(axis)
+        halo_src = x[..., -(lh - 1):]
+        perm = [(i, i + 1) for i in range(n_shards - 1)]
+        halo = jax.lax.ppermute(halo_src, axis, perm)  # from shard i-1
         return _local_overlap_save(x, h.astype(x.dtype), halo, nfft)
 
     f = shard_map(local, mesh=mesh, in_specs=(P(None, axis),),
-                  out_specs=P(None, axis),
-                  check_vma=(halo_impl != "rdma"))
+                  out_specs=P(None, axis))
     return jax.jit(f)
 
 

@@ -1,20 +1,12 @@
-"""Data-parallel execution of the flagship fused-kernel perf path
-(SURVEY.md section 2.3 "trial/data parallelism"; the reference's only
-parallel boundary — the ``parfor`` trial loop at
-main_plot_snr_vs_angle_error.m:167 — mapped onto a TPU device mesh).
+"""Data-parallel execution of the flagship perf path (SURVEY.md section 2.3
+"trial/data parallelism"; the reference's only parallel boundary — the
+``parfor`` trial loop at main_plot_snr_vs_angle_error.m:167 — mapped onto a
+device mesh).
 
-The fused Pallas noise-RDM kernel (ops/pallas_rdm.py) is what makes the
-2.4 ms/frame single-chip number possible, but a ``pallas_call`` takes no
-vmap batch axis and GSPMD cannot partition its grid — so the GSPMD-annotated
-pipeline (parallel/sharded.py) substitutes the ~2x slower XLA lowrank chain
-whenever a mesh is present. The right multi-device story for the perf path
-is the one the reference itself uses for trials: *shard the batch, not the
-frame*. ``shard_map`` over the ``dp`` axis gives every device its own slice
-of a frame/trial batch; inside the shard each device runs the COMPLETE
-single-device perf pipeline — fused kernel included — as local compute with
-no collectives in the hot loop. N chips therefore run N fused kernels
-concurrently: throughput scales as ~N x the single-chip frames/s instead of
-regressing through the XLA chain.
+*Shard the batch, not the frame*: ``shard_map`` over the ``dp`` axis gives
+every device its own slice of a frame/trial batch; inside the shard each
+device runs the COMPLETE single-device perf pipeline as local compute with
+no collectives in the hot loop, so N devices run N frames concurrently.
 
 Contrast with parallel/sharded.py, which shards ONE frame across devices
 (ch/cpi/range axes) to shrink latency and per-device memory; this module
@@ -55,10 +47,8 @@ def make_dp_frame_processor(cfg: RadarConfig, mesh: Mesh,
     the same leading batch axis (see :func:`broadcast_targets`). N must be a
     multiple of the ``axis`` size. Each device runs the full single-device
     pipeline for its ``N / n_dp`` frames sequentially under ``lax.map`` —
-    one full-size frame already saturates a chip, so a sequential local loop
-    is throughput-equivalent to batching (cf. pipeline/montecarlo.py's
-    lax.map over trials), and it is the only composition the fused Pallas
-    kernel admits.
+    one full-size frame already fills a device, and a sequential local loop
+    keeps per-device memory at one frame's working set.
 
     Every result is bit-identical to running the single-device processor
     per frame (tests/test_dp.py): shard_map only changes WHERE each frame
@@ -70,8 +60,9 @@ def make_dp_frame_processor(cfg: RadarConfig, mesh: Mesh,
         return jax.lax.map(lambda kt: process(kt[0], kt[1]),
                            (keys, targets))
 
-    # check_vma=False: a pallas_call (the fused kernel) carries no varying-
-    # mesh-axes annotation; correctness is covered by the bit-parity test
+    # check_vma=False: the clustering fixpoint (cluster/connected.py) is a
+    # while_loop whose initial flag is mesh-invariant while its update is
+    # per-shard; correctness is covered by the parity tests
     f = shard_map(local, mesh=mesh, in_specs=(P(axis), P(axis)),
                   out_specs=P(axis), check_vma=False)
 
@@ -92,10 +83,9 @@ def make_dp_sharded_frame_processor(cfg: RadarConfig, mesh: Mesh,
     targets [N, K]) -> FrameResult batched [N]`` where the batch axis shards
     over the mesh ``dp`` axis and EACH frame is GSPMD-sharded over the
     remaining model axes (ch-sharded synthesis + psum DBF, cpi pulse/gate
-    sharding with the all_to_all MTD reshard) — the configuration a real pod
-    uses: dp across hosts on DCN, ch/cpi within a host on ICI
-    (parallel/multihost.py mesh order; SURVEY.md section 2.3 composed
-    strategies).
+    sharding with the all_to_all MTD reshard) — dp across hosts, ch/cpi
+    within a host (parallel/multihost.py mesh order; SURVEY.md section 2.3
+    composed strategies).
 
     Pure GSPMD: the single-frame sharded pipeline (parallel/sharded.py,
     built with ``frame_axes=(cpi,)`` so dp stays free for the batch) is
@@ -131,7 +121,7 @@ def make_dp_trial_fn(cfg: RadarConfig, mesh: Mesh,
     """dp-sharded Monte-Carlo trial batch on the PERF path: jitted
     ``trials(targets, keys [T, ...]) -> (angles [T], hits [T])`` matching
     pipeline/montecarlo.py's contract (first final target's angle, NaN on
-    miss) but with trials sharded over the mesh ``axis`` and the full fused
+    miss) but with trials sharded over the mesh ``axis`` and the full
     pipeline running per device. ``targets`` is ONE target set (un-batched);
     the signal factors are recomputed per trial — at rank K<=8 that is a few
     microseconds against a multi-ms frame."""

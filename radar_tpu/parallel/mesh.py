@@ -11,8 +11,10 @@ Mesh axes and their radar meaning:
   - ``cpi``: slow-time parallel — pulse blocks of a CPI sharded; MTD needs a
              resharding transpose (sequence-parallel analog)
 
-Collectives ride ICI within a slice when the mesh is built over the default
-device order; DCN axes go first for multi-slice runs (jax.distributed).
+On a multi-GPU host every card reaches every other over NVLink at the same
+rate, so the mesh follows the algorithm alone: ``make_mesh`` reshapes the
+default device order. Across hosts (jax.distributed) the dp axis goes
+first, so the only cross-host traffic is the batch split.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Device-side 16..128-channel echo synthesis (SURVEY.md L3 device part).
 
-TPU-first reformulation of the reference's triple loop
+Array reformulation of the reference's triple loop
 (fun_process_single_frame.m:45-88): instead of ``for m in pulses: for k in
 targets: place pulse, phase, outer-product``, the whole raw-IQ cube is one
 einsum over precomputed per-target factor vectors:
@@ -29,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config.params import RadarConfig
+
+_HIGHEST = jax.lax.Precision.HIGHEST  # full f32 (no TF32) on the GPU
 
 P_NOISE_FLOOR = 1.0  # reference v8 noise floor (fun_process_single_frame.m:16)
 
@@ -60,10 +62,8 @@ def _target_factors(range_m, velocity_ms, elevation_deg, amp, tx_pulse,
 
     # Delayed base pulse per target: integer LINEAR shift applied in the
     # frequency domain on a power-of-2 grid: ifft(fft(tx, nfft) *
-    # exp(-2pi*j*k*d/nfft))[:S]. Gather-free (dynamic gathers are
-    # pathological on some TPU runtimes: untransferable output layouts,
-    # erratic execution) and on the power-of-2 FFT fast path (a length-S
-    # transform goes through Bluestein and costs several ms). ``nfft`` >=
+    # exp(-2pi*j*k*d/nfft))[:S]. Gather-free, and on the power-of-2 FFT
+    # fast path (a length-S transform goes through Bluestein). ``nfft`` >=
     # S + tx support guarantees no wraparound for any delay < S, so this is
     # exactly the reference's zero-padded shift (ref :66-69). The phase
     # index k*d is reduced mod nfft with a bitwise AND so float32 phase
@@ -109,7 +109,7 @@ def _synthesize(range_m, velocity_ms, elevation_deg, amp, tx_pulse,
         range_m, velocity_ms, elevation_deg, amp, tx_pulse, num_pulses,
         num_channels, element_spacing, wavelength, prt, fs, c, dtype, nfft)
     return jnp.einsum("kp,ks,kc->psc", dop_amp, base, steer,
-                      preferred_element_type=dtype)
+                      precision=_HIGHEST, preferred_element_type=dtype)
 
 
 @partial(jax.jit, static_argnames=("num_pulses", "num_channels",
@@ -132,9 +132,10 @@ def _synthesize_beams(range_m, velocity_ms, elevation_deg, amp, tx_pulse,
     dop_amp, base, steer = _target_factors(
         range_m, velocity_ms, elevation_deg, amp, tx_pulse, num_pulses,
         num_channels, element_spacing, wavelength, prt, fs, c, dtype, nfft)
-    steer_b = steer @ mix.astype(dtype)  # [K,B]
+    steer_b = jnp.matmul(steer, mix.astype(dtype),
+                         precision=_HIGHEST)  # [K,B]
     return jnp.einsum("kp,ks,kb->psb", dop_amp, base, steer_b,
-                      preferred_element_type=dtype)
+                      precision=_HIGHEST, preferred_element_type=dtype)
 
 
 def _synth_args(targets, precomp, cfg: RadarConfig, dtype, amplitudes):
@@ -194,7 +195,8 @@ def _factors_beams(range_m, velocity_ms, elevation_deg, amp, tx_pulse,
     dop_amp, base, steer = _target_factors(
         range_m, velocity_ms, elevation_deg, amp, tx_pulse, num_pulses,
         num_channels, element_spacing, wavelength, prt, fs, c, dtype, nfft)
-    return dop_amp, base, steer @ mix.astype(dtype)
+    return dop_amp, base, jnp.matmul(steer, mix.astype(dtype),
+                                     precision=_HIGHEST)
 
 
 def synthesize_factors(targets, precomp, cfg: RadarConfig, mix,
@@ -240,11 +242,9 @@ def beam_noise_factor(dbf_w_effective, p_noise: float = P_NOISE_FLOOR):
 def _as_impl_key(key: jax.Array, impl: str) -> jax.Array:
     """Convert a (possibly raw uint32) threefry key to another PRNG family.
 
-    ``rbg`` (XLA RngBitGenerator, the on-core generator) measures ~1.6x
-    faster than threefry at frame size on v5e (results/noise_prng.json) —
-    the earlier 'rbg slower' finding was an artifact of the untyped-key
-    path. Distinct threefry keys map to distinct rbg keys (the 128-bit rbg
-    key is the 64-bit threefry key doubled)."""
+    ``rbg`` is XLA's RngBitGenerator. Distinct threefry keys map to
+    distinct rbg keys (the 128-bit rbg key is the 64-bit threefry key
+    doubled)."""
     if impl == "threefry":
         return key
     data = (jax.random.key_data(key)
@@ -276,6 +276,7 @@ def add_noise_beamspace(key: jax.Array, beams: jax.Array,
         np.sqrt(0.5), real_dtype)  # iid CN(0,1) per (p,s,b)
     return beams + jnp.einsum("psj,bj->psb", z.astype(dtype),
                               jnp.asarray(l_factor).astype(dtype),
+                              precision=_HIGHEST,
                               preferred_element_type=dtype)
 
 

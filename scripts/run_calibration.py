@@ -45,6 +45,9 @@ def main() -> None:
                          "= calibrate_all_monopulse_slopes.m procedure "
                          "(complex ratio, fliplr, +/-separation scan)")
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     if args.cpu:
         import jax

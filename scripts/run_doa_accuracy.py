@@ -37,6 +37,9 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join(REPO, "results",
                                                   "doa_accuracy.json"))
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     import jax
 

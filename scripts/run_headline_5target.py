@@ -8,7 +8,7 @@ stronger ones (CFAR masking + clustering gates + association stressed
 simultaneously).
 
 Usage:
-  python scripts/run_headline_5target.py                 # TPU, perf config
+  python scripts/run_headline_5target.py                 # GPU, perf config
   python scripts/run_headline_5target.py --cpu --small   # smoke
 Artifacts: results/headline_5target.json + _ppi/_history figures.
 """
@@ -38,12 +38,14 @@ def main() -> None:
                          "from the first seed")
     ap.add_argument("--exact", action="store_true",
                     help="exact-reference-stream path instead of the perf "
-                         "config (same detections statistically; ~2x "
-                         "slower on TPU)")
+                         "config (same detections statistically)")
     ap.add_argument("--out", default=None,
                     help="JSON artifact path (default results/"
                          "headline_5target.json; smoke runs go to /tmp)")
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     if args.cpu:
         import jax
@@ -61,7 +63,7 @@ def main() -> None:
 
     cfg = small_test_config() if args.small else full_config()
     if not args.exact:
-        cfg = perf_config(cfg, pallas=not args.cpu)
+        cfg = perf_config(cfg)
     pre = precompute(cfg)
     scene = five_target_scene()
 

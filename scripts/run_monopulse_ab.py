@@ -40,6 +40,9 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=50)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     if args.cpu:
         import jax
@@ -54,7 +57,7 @@ def main() -> None:
 
     base = small_test_config(channels=8, pulses=32) if args.small \
         else full_config()
-    cfg_int = perf_config(base, pallas=not args.cpu)
+    cfg_int = perf_config(base)
     cfg_ref = cfg_int.replace(monopulse_refined=True)
     pre = precompute(cfg_int)
     snrs = np.asarray([float(s) for s in args.snrs.split(",")])

@@ -4,10 +4,10 @@ multi-host path on one machine.
 This is the executable evidence for SURVEY.md section 4 ("multi-node without
 a cluster") and the BASELINE north star ("scaling measured at ... N>=2
 hosts"): the reference's only parallel boundary is a shared-nothing MATLAB
-``parfor`` trial loop (main_plot_snr_vs_angle_error.m:167); the TPU-native
-equivalent is a DCN-major mesh over multiple *processes*
-(parallel/multihost.py) with GSPMD collectives crossing the process
-boundary. Real multi-host TPU hardware is not required to exercise that
+``parfor`` trial loop (main_plot_snr_vs_angle_error.m:167); the equivalent
+here is a mesh over multiple *processes* with the cross-process axis first
+(parallel/multihost.py) and GSPMD collectives crossing the process
+boundary. Real multi-host hardware is not required to exercise that
 logic: N local processes with the CPU backend (Gloo cross-process
 collectives) run the identical process-id / mesh-construction /
 batch-slicing / collective code paths.
@@ -32,8 +32,7 @@ reference run (identical config, key, targets):
      trials (the per-host batch-slicing contract);
   4. the perf-path dp composition (parallel/dp.py shard_map) with each
      device running the complete per-frame pipeline on its slice of a
-     frame batch (XLA lowrank chain on CPU workers — see check 4's note
-     on the fused kernel's interpret-mode limitation).
+     frame batch.
 
 Run:  python scripts/run_multiprocess.py [--nproc 2] [--devices-per-proc 2]
 Artifact: results/multiprocess_parity.json (written by process 0).
@@ -182,22 +181,11 @@ def worker_main(args) -> int:
     # 4) the PERF-path dp composition (parallel/dp.py shard_map) ACROSS
     #    the process boundary: each device — some owned by the other
     #    process — runs the complete perf pipeline for its frame of the
-    #    batch. Uses the XLA lowrank chain (perf_config(pallas=False)):
-    #    the fused kernel's CPU interpret emulation drives global shared
-    #    state through io_callbacks and STALLS under jax.distributed
-    #    (measured: >5 min at <25% CPU for a 3 s workload, both with 2
-    #    mesh devices per process and with 1; stack parked in
-    #    interpret_pallas_call._allocate_buffer). Real TPU chips run the
-    #    real kernel with no such mechanism. Fused-kernel-under-shard_map
-    #    parity is proven in-process (tests/test_dp.py, dryrun_multichip);
-    #    the shard_map composition exercised here is the identical code
-    #    path with only the per-device kernel body swapped, and the body
-    #    contains no collectives.
+    #    batch.
     from radar_tpu.config.params import perf_config
     from radar_tpu.parallel.dp import make_dp_frame_processor
 
-    cfg_pf = perf_config(small_test_config(channels=8, pulses=32),
-                         pallas=False)
+    cfg_pf = perf_config(small_test_config(channels=8, pulses=32))
     pre_pf = precompute(cfg_pf)
     mesh_pf = multihost.make_multihost_mesh(dp=nproc * k)
     n_frames = nproc * k
@@ -276,14 +264,11 @@ def worker_bench(args) -> int:
     cfg = small_test_config(channels=8, pulses=32)
     if args.perf:
         # the PERF configuration dp-sharded across the process boundary
-        # via shard_map (parallel/dp.py) — the composition real multi-chip
-        # hardware would run with the fused kernel. CPU workers use the
-        # XLA lowrank chain (pallas=False): the kernel's interpret
-        # emulation stalls under jax.distributed (see worker_main check 4).
+        # via shard_map (parallel/dp.py)
         from radar_tpu.config.params import perf_config
         from radar_tpu.parallel.dp import make_dp_trial_fn
 
-        cfg = perf_config(cfg, pallas=False)
+        cfg = perf_config(cfg)
     pre = precompute(cfg)
     tb = TargetBatch.make([3000.0], [10.0], [10.0], [18.0])
     n_trials = args.trials_per_proc * nproc
@@ -314,13 +299,13 @@ def worker_bench(args) -> int:
     for _ in range(reps):
         float(run(tb_g, keys_g))
     dt = (_time.perf_counter() - t0) / reps
-    tput = n_trials / dt
+    rate = n_trials / dt
     print(f"[proc {pid}] bench: {n_trials} trials in {dt * 1e3:.1f} ms "
-          f"-> {tput:.2f} trials/s", flush=True)
+          f"-> {rate:.2f} trials/s", flush=True)
     if pid == 0 and args.out:
         with open(args.out, "w") as f:
             json.dump({"nproc": nproc, "trials": n_trials,
-                       "seconds_per_batch": dt, "trials_per_s": tput}, f)
+                       "seconds_per_batch": dt, "trials_per_s": rate}, f)
     return 0
 
 
@@ -365,7 +350,7 @@ def worker_streaming(args) -> int:
 
     cfg = small_test_config(channels=8, pulses=32)
     if args.perf:
-        cfg = perf_config(cfg, pallas=False)   # XLA chain on CPU workers
+        cfg = perf_config(cfg)
     pre = precompute(cfg)
     trial_batch = jax.jit(jax.vmap(make_frame_processor(cfg, pre, jit=False),
                                    in_axes=(0, None)))
@@ -681,7 +666,7 @@ def bench_orchestrate(args) -> int:
            "note": ("points with nproc > cpu_cores oversubscribe physical "
                     "cores; their efficiency measures core contention on "
                     "this box, not the communication fabric"),
-           "config": "perf (fused kernel, interpret)" if args.perf
+           "config": "perf (XLA lowrank chain)" if args.perf
            else "stream small",
            "curve": {str(n): {k: round(v, 4) for k, v in c.items()}
                      for n, c in curve.items()}}
@@ -734,6 +719,9 @@ def main():
     ap.add_argument("--logdir", default="/tmp")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
     if args.out is None and not args.worker:
         # per-mode artifact defaults (workers get --out passed explicitly)
         args.out = os.path.join(

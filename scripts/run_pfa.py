@@ -22,7 +22,7 @@ script produces results/pfa_calibration.json with three sections:
 3. ``realdata_path_operating`` — the same noise frames through the
    segmented 1D CA-GO CFAR (clutter band excluded), same treatment.
 
-Run on the TPU (default) or ``--cpu``. ``--frames`` scales the cell count.
+Run on the GPU (default) or ``--cpu``. ``--frames`` scales the cell count.
 """
 
 from __future__ import annotations
@@ -52,6 +52,9 @@ def main():
     ap.add_argument("--out", default=os.path.join(REPO, "results",
                                                   "pfa_calibration.json"))
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     import jax
     if args.cpu:

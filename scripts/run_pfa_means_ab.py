@@ -1,4 +1,4 @@
-"""Pfa delta check for CfarParams.means_impl="matmul" (the MXU
+"""Pfa delta check for CfarParams.means_impl="matmul" (the matmul
 banded-stencil window means) vs the default shift-add formulation.
 
 The two implementations differ only in f32 summation order inside each
@@ -37,16 +37,19 @@ T_FACTORS = [1.0, 1.5, 2.0, 4.0, 6.0, 8.0, 10.0, 12.0]
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--tpu", action="store_true",
+    ap.add_argument("--gpu", action="store_true",
                     help="run on the live backend instead of forcing CPU")
     ap.add_argument("--exp-frames", type=int, default=12)
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--out", default=os.path.join(REPO, "results",
                                                   "pfa_matmul_recheck.json"))
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np

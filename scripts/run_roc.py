@@ -37,7 +37,7 @@ T_SWEEP = [1.5, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 10.0, 12.0]
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--tpu", action="store_true",
+    ap.add_argument("--gpu", action="store_true",
                     help="run on the live backend instead of forcing CPU")
     ap.add_argument("--snr", type=float, default=-31.0,
                     help="raw truth SNR in dB for the Pd arm (default "
@@ -51,9 +51,12 @@ def main():
     ap.add_argument("--png", default=os.path.join(REPO, "results",
                                                   "roc.png"))
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 

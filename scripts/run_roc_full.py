@@ -1,4 +1,4 @@
-"""FULL-SCALE CFAR operating curve on the TPU: Pd(T) AND Pfa(T) through
+"""FULL-SCALE CFAR operating curve on the accelerator: Pd(T) AND Pfa(T) through
 the complete 16-channel pipeline in ONE artifact — the single defensible
 number behind BASELINE's "CFAR Pd at fixed Pfa" metric.
 
@@ -23,7 +23,7 @@ the full 16ch x 332-pulse frame geometry on the device:
   (ops/cfar_analysis.count_exceedances_2d). Zero-hit thresholds report
   the 95%-confidence upper bound 3/cells (rule of three).
 
-Writes results/roc_full.json (+ .png). ~3-6 min on one v5e chip.
+Writes results/roc_full.json (+ .png).
 
 Usage: python scripts/run_roc_full.py [--cpu --small] [--trials 200]
        [--noise-frames 600] [--snr=-40]
@@ -49,7 +49,7 @@ T_REF = 8.0          # the reference operating point
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--cpu", action="store_true",
-                    help="force CPU (smoke runs; artifact runs on TPU)")
+                    help="force CPU (smoke runs; artifact runs on the GPU)")
     ap.add_argument("--small", action="store_true",
                     help="small 8ch x 32p config (smoke only)")
     ap.add_argument("--snr", type=float, default=-40.0,
@@ -83,6 +83,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
     import jax.numpy as jnp
 
     from radar_tpu.cluster.stages import cluster_stage1, cluster_stage2
@@ -92,33 +95,25 @@ def main():
     from radar_tpu.ops.cfar import (extract_detections, goca_noise_and_valid,
                                     pair_sum_maps)
     from radar_tpu.ops.cfar_analysis import count_exceedances_2d
-    from radar_tpu.ops.pulse_compression import (make_matmul_plan, make_plan)
-    from radar_tpu.ops.mtd import make_mtd_matrix
     from radar_tpu.pipeline.frame import measure_consts
     from radar_tpu.pipeline.lowrank import make_lowrank_stages
     from radar_tpu.sim.scenario import TargetBatch
     from radar_tpu.waveform.precompute import precompute
 
-    on_cpu = args.cpu
     if args.small:
         base = small_test_config(channels=8, pulses=32)
     elif args.channels is not None:
         base = scaled_config(channels=args.channels, pulses=args.pulses)
     else:
         base = full_config()
-    cfg = perf_config(base, pallas=not on_cpu)
+    cfg = perf_config(base)
     pre = precompute(cfg)
     dtype = jnp.complex64
     real_dtype = jnp.finfo(dtype).dtype
 
-    plan = make_plan(pre)
-    mplan = make_matmul_plan(pre) if cfg.pc_method == "matmul" else None
-    mtd_win = np.asarray(pre.mtd_win, real_dtype)
-    mtd_mat = (make_mtd_matrix(pre.mtd_win, cfg.sig.prt_num, cfg.mtd_fft_len)
-               if cfg.mtd_method == "matmul" else None)
     mc = measure_consts(cfg, pre, real_dtype)
     ip = cfg.interp
-    lr = make_lowrank_stages(cfg, pre, plan, mplan, mtd_mat, mtd_win, dtype)
+    lr = make_lowrank_stages(cfg, pre, dtype)
 
     truth = TargetBatch.make([10000.0], [20.0], [args.truth_el],
                              [args.snr])
@@ -127,22 +122,15 @@ def main():
     key = jax.random.PRNGKey(20260821)
     ts_np = np.asarray(T_SWEEP, np.float32)
 
-    if lr.noise_rdm is not None:
-        def noise_rdm(k):
-            """The COMPLETE noise chain as one RDM (white beam noise ->
-            PC -> MTD -> covariance mix) — the fused Pallas kernel."""
-            return lr.noise_rdm(k, interpret=on_cpu)
-    else:
-        # XLA lowrank chain (CPU smoke): mix a zero signal (an effectively
-        # -inf-dB target) with the full white-noise -> PC -> MTD chain
-        zero_tb = TargetBatch.make([truth.range_m[0]],
-                                   [truth.velocity_ms[0]],
-                                   [truth.elevation_deg[0]], [-3000.0])
-        zero_tb = jax.tree.map(jnp.asarray, zero_tb)
+    # the complete noise chain as one RDM: mix a zero signal (an
+    # effectively -inf-dB target) with white noise -> PC -> MTD
+    zero_tb = TargetBatch.make([truth.range_m[0]], [truth.velocity_ms[0]],
+                               [truth.elevation_deg[0]], [-3000.0])
+    zero_tb = jax.tree.map(jnp.asarray, zero_tb)
 
-        def noise_rdm(k):
-            return lr.mix_add(lr.signal_rdm(zero_tb),
-                              lr.mtd(lr.pc(lr.gen_noise(k))))
+    def noise_rdm(k):
+        return lr.mix_add(lr.signal_rdm(zero_tb),
+                          lr.mtd(lr.pc(lr.gen_noise(k))))
 
     # ---- Pd(T): one compiled program, T traced ------------------------
     def one_trial(echo, k, ts):
@@ -261,8 +249,7 @@ def main():
                    + ("small" if args.small
                       else "scaled" if args.channels is not None
                       else "FULL")
-                   + (" perf(XLA lowrank)" if on_cpu
-                      else " perf(fused Pallas)")),
+                   + " perf(XLA lowrank)"),
         "truth_elevation_deg": args.truth_el,
         "pipeline": "complete: synthesis -> noise chain -> maps -> GOCA "
                     "CFAR -> extraction -> estimation -> clustering; "

@@ -44,9 +44,8 @@ def main() -> None:
                          "the smoothed trajectories")
     ap.add_argument("--perf", action="store_true",
                     help="run the perf configuration (rank-K signal RDM + "
-                         "post-MTD beam-noise mixing, bf16 MXU matmuls, rbg "
-                         "PRNG; statistically validated, results/) — ~1.8x "
-                         "the exact-reference-stream path on TPU")
+                         "post-MTD beam-noise mixing, bf16 matmul planes, "
+                         "rbg PRNG; statistically validated, results/)")
     ap.add_argument("--five-target", action="store_true",
                     help="run the v8_2 five-target scene (SNR -20..+15 dB, "
                          "main_simulate_echoes_with_array_v8_2.m:28-51) "
@@ -58,6 +57,9 @@ def main() -> None:
                          "(default), 'simple' = v8_2 R-=V*T with constant "
                          "El/V (v8_2.m:200-205)")
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
     if args.kinematics is None:
         args.kinematics = "simple" if args.five_target else "altitude"
 
@@ -78,11 +80,9 @@ def main() -> None:
 
     cfg = small_test_config() if args.small else full_config()
     if args.perf:
-        # Pallas noise-RDM kernel only on an accelerator (interpret mode on
-        # CPU is for tests, not speed)
         from radar_tpu.config.params import perf_config
 
-        cfg = perf_config(cfg, pallas=not args.cpu)
+        cfg = perf_config(cfg)
     pre = precompute(cfg)
     scene = (five_target_scene() if args.five_target
              else default_two_target_scene())

@@ -34,20 +34,11 @@ def main() -> None:
                     help="fused synth+DBF beam-space path "
                          "(cfg.fused_synth_dbf)")
     ap.add_argument("--bf16", action="store_true",
-                    help="bf16 MXU precision for the MTD/PC matmuls")
+                    help="bf16 planes for the MTD/PC matmuls")
     ap.add_argument("--lowrank", action="store_true",
                     help="rank-K signal RDM + post-MTD noise mixing")
     ap.add_argument("--rbg", action="store_true",
                     help="rbg PRNG family for the noise draws")
-    ap.add_argument("--prdm", action="store_true",
-                    help="fused Pallas noise-RDM kernel (TPU)")
-    ap.add_argument("--uniform", action="store_true",
-                    help="uniform white-noise rails for the Pallas "
-                         "noise-RDM path (cfg.noise_dist='uniform')")
-    ap.add_argument("--prng", action="store_true",
-                    help="in-kernel hardware-PRNG noise generation "
-                         "(cfg.noise_rdm_impl='pallas_prng'; implies "
-                         "uniform rails)")
     ap.add_argument("--dp", type=int, default=None,
                     help="shard each trial batch over a dp mesh of this "
                          "many devices (parallel/dp.py; trials and batch "
@@ -69,6 +60,9 @@ def main() -> None:
                     help="start:step:stop in dB (MATLAB colon syntax); "
                          "use --snr=-10:2:30 form for negative starts")
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     if args.cpu:
         if args.dp and args.dp > 1:
@@ -100,15 +94,6 @@ def main() -> None:
         cfg = cfg.replace(fused_synth_dbf=True, lowrank_rdm=True)
     if args.rbg:
         cfg = cfg.replace(noise_prng="rbg")
-    if args.prdm:
-        cfg = cfg.replace(fused_synth_dbf=True, lowrank_rdm=True,
-                          noise_rdm_impl="pallas")
-    if args.uniform:
-        cfg = cfg.replace(noise_dist="uniform")
-    if args.prng:
-        cfg = cfg.replace(fused_synth_dbf=True, lowrank_rdm=True,
-                          noise_rdm_impl="pallas_prng",
-                          noise_dist="uniform")
 
     truth = None
     if args.truth_el is not None:
@@ -183,11 +168,7 @@ def main() -> None:
                 "pipeline": {"fused": bool(cfg.fused_synth_dbf),
                              "lowrank": bool(cfg.lowrank_rdm),
                              "bf16": cfg.matmul_precision == "bf16",
-                             "rbg": cfg.noise_prng == "rbg",
-                             "noise_rdm_impl": cfg.noise_rdm_impl,
-                             "fused_pallas_kernel":
-                                 str(cfg.noise_rdm_impl).startswith(
-                                     "pallas")},
+                             "rbg": cfg.noise_prng == "rbg"},
                 "snr_db": [float(x) for x in res.snr_db],
                 "angle_error_std_deg": [float(x)
                                         for x in res.angle_error_std],

@@ -43,6 +43,9 @@ def main() -> None:
                          "scenes from disk, even onto a different --dp")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     if args.cpu:
         if args.dp:
@@ -75,11 +78,9 @@ def main() -> None:
     else:
         cfg = small_test_config() if args.small else full_config()
     if args.perf:
-        # Pallas noise-RDM kernel only on an accelerator (interpret mode on
-        # CPU is for tests, not speed)
         from radar_tpu.config.params import perf_config
 
-        cfg = perf_config(cfg, pallas=not args.cpu)
+        cfg = perf_config(cfg)
     lo, hi = (float(x) for x in args.snr.split(":"))
     mesh = None
     if args.dp:

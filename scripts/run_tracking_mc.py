@@ -18,7 +18,7 @@ All scenes carry 5 targets so ONE compiled device-scan program serves
 every scene (initial state is data, not shape).
 
 Usage:
-  python scripts/run_tracking_mc.py                    # TPU, perf config
+  python scripts/run_tracking_mc.py                    # GPU, perf config
   python scripts/run_tracking_mc.py --cpu --small --scenes 3 --frames 8
 Artifact: results/tracking_mc.json.
 """
@@ -113,6 +113,9 @@ def main() -> None:
                          "velocity estimate drifts past 0.4)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    from radar_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     if args.cpu:
         import jax
@@ -139,7 +142,7 @@ def main() -> None:
     else:
         cfg = full_config()
     if not args.exact:
-        cfg = perf_config(cfg, pallas=not args.cpu)
+        cfg = perf_config(cfg)
     if args.stage2_vel_gate is not None:
         import dataclasses
 

@@ -2,7 +2,7 @@
 
 An independent, loop/stride-based implementation of each stage's semantics
 (as specified by the reference MATLAB, SURVEY.md section 2.1), used as the
-golden model for the jitted TPU ops — the formalization of the reference's
+golden model for the jitted ops — the formalization of the reference's
 stage-by-stage debug-harness idiom (SURVEY.md section 4.2).
 """
 
@@ -106,6 +106,43 @@ def goca_cfar_oracle(maps: np.ndarray, ref_r, guard_r, ref_v, guard_v, t_cfar,
                 if m[v, r] > t_cfar * noise:
                     mask[v, r, p] = True
     return mask
+
+
+def goca_cfar_ratio_oracle(maps: np.ndarray, ref_r, guard_r, ref_v, guard_v,
+                           t_cfar, method: str = "GOCA"
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized :func:`goca_cfar_oracle` (same window sums in the same
+    order, so the same mask) for full-size maps. Returns ``(mask, stat)``
+    where ``stat = cell / (t_cfar * noise)`` on the interior cells (a cell
+    is a detection iff stat > 1) and NaN on the border cells the reference
+    never tests."""
+    comb = {"GOCA": np.maximum, "SOCA": np.minimum,
+            "CA": lambda a, b: 0.5 * (a + b)}[method]
+    num_v, num_r, _ = maps.shape
+    hr, hv = ref_r + guard_r, ref_v + guard_v
+    iv, ir = slice(hv, num_v - hv), slice(hr, num_r - hr)
+    cell = maps[iv, ir]
+
+    def window_mean(offsets, axis):
+        acc = 0.0
+        for o in offsets:
+            if axis == 1:
+                acc = acc + maps[iv, hr + o:num_r - hr + o]
+            else:
+                acc = acc + maps[hv + o:num_v - hv + o, ir]
+        return acc / len(offsets)
+
+    lead_r = window_mean(range(-guard_r - ref_r, -guard_r), 1)
+    trail_r = window_mean(range(guard_r + 1, guard_r + ref_r + 1), 1)
+    lead_v = window_mean(range(-guard_v - ref_v, -guard_v), 0)
+    trail_v = window_mean(range(guard_v + 1, guard_v + ref_v + 1), 0)
+    noise = np.maximum(comb(lead_r, trail_r), comb(lead_v, trail_v))
+    mask = np.zeros(maps.shape, bool)
+    stat = np.full(maps.shape, np.nan)
+    mask[iv, ir] = cell > t_cfar * noise
+    with np.errstate(divide="ignore", invalid="ignore"):
+        stat[iv, ir] = cell / (t_cfar * noise)
+    return mask, stat
 
 
 def spline_interp_oracle(y: np.ndarray, times: int) -> np.ndarray:

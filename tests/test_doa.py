@@ -375,7 +375,7 @@ def test_esprit_2d_rejects_bad_args():
 
 
 def test_superres_robust_at_complex64():
-    """TPU-resident snapshots are complex64 (no f64 on TPU). The
+    """Device-resident snapshots are complex64. The
     search-free estimators must stay reliable there: the [C, C] subspace
     tail promotes to host float64 (superres._host_eigvecs_f64) — an f32
     subspace flipped ~2/3 of 128-element smoothed coherent trials

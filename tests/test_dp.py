@@ -1,7 +1,6 @@
 """Data-parallel perf-path execution (parallel/dp.py) on the 8-virtual-CPU
-mesh: shard_map over the dp axis must reproduce the single-device fused
-pipeline bit-for-bit — the multi-device story for the flagship Pallas
-kernel path (the reference's parfor trial boundary,
+mesh: shard_map over the dp axis must reproduce the single-device perf
+pipeline bit-for-bit (the reference's parfor trial boundary,
 main_plot_snr_vs_angle_error.m:167)."""
 
 import jax
@@ -36,20 +35,12 @@ def _keys(n, seed=0):
         jax.random.PRNGKey(seed), jnp.arange(n)))
 
 
-@pytest.mark.parametrize(
-    "pallas", [pytest.param(True, marks=pytest.mark.slow), False])
-def test_dp_frame_batch_matches_single_device(pallas):
-    """Each dp shard's frames == the single-device perf pipeline, for both
-    the fused-kernel path (interpret mode on CPU; ~2.7 s/frame, hence the
-    slow marker) and the XLA lowrank chain."""
-    cfg = perf_config(small_test_config(), pallas=pallas)
+def test_dp_frame_batch_matches_single_device():
+    """Each dp shard's frames == the single-device perf pipeline."""
+    cfg = perf_config(small_test_config())
     pre = precompute(cfg)
-    if pallas:
-        n, dp = 4, 4
-        mesh = make_mesh(dp=dp)
-    else:
-        n, dp = 8, 4
-        mesh = make_mesh(dp=dp, ch=2)   # extra non-dp axis must be inert
+    n, dp = 8, 4
+    mesh = make_mesh(dp=dp, ch=2)   # extra non-dp axis must be inert
     proc_dp = make_dp_frame_processor(cfg, mesh, pre)
     keys = _keys(n)
     tb = _batched_targets(n)
@@ -71,8 +62,7 @@ def test_dp_frame_batch_matches_single_device(pallas):
 @pytest.mark.parametrize("lowrank", [False, True])
 def test_dp_model_parallel_composition(lowrank):
     """dp x model-parallel: batch sharded over dp=2, EACH frame GSPMD-
-    sharded over (ch=2, cpi=2) — the real-pod composition (dp on DCN,
-    ch/cpi on ICI) — for both the stream path and the XLA lowrank perf
+    sharded over (ch=2, cpi=2) — for both the stream path and the XLA lowrank perf
     chain. The parity reference is the VMAPPED single-device pipeline
     (identical program minus the sharding annotations): sharding may only
     change WHERE values are computed, so counts must match exactly and
@@ -85,7 +75,7 @@ def test_dp_model_parallel_composition(lowrank):
         # f32 matmuls: the CPU DotThunk has no batched bf16 dot (the vmap
         # adds the batch dim); bf16 is a per-dot precision knob orthogonal
         # to the sharding composition under test here
-        cfg = perf_config(cfg, pallas=False).replace(
+        cfg = perf_config(cfg).replace(
             matmul_precision="f32")
     pre = precompute(cfg)
     mesh = make_mesh(dp=2, ch=2, cpi=2)
@@ -115,7 +105,7 @@ def test_dp_model_parallel_composition(lowrank):
 
 
 def test_dp_frame_batch_rejects_indivisible():
-    cfg = perf_config(small_test_config(), pallas=False)
+    cfg = perf_config(small_test_config())
     mesh = make_mesh(dp=4)
     proc = make_dp_frame_processor(cfg, mesh, precompute(cfg))
     with pytest.raises(ValueError, match="not divisible"):
@@ -124,9 +114,9 @@ def test_dp_frame_batch_rejects_indivisible():
 
 @pytest.mark.slow
 def test_dp_trials_match_single_device():
-    """dp-sharded Monte-Carlo trials on the fused perf path == mapping the
+    """dp-sharded Monte-Carlo trials on the perf path == mapping the
     single-device processor over the same keys."""
-    cfg = perf_config(small_test_config(), pallas=True)
+    cfg = perf_config(small_test_config())
     pre = precompute(cfg)
     mesh = make_mesh(dp=4)
     trials = make_dp_trial_fn(cfg, mesh, pre)
@@ -154,8 +144,7 @@ def test_snr_sweep_dp_mesh_matches_pd_ladder():
     main_plot_snr_vs_angle_error.m:167, on the device mesh)."""
     from radar_tpu.pipeline.montecarlo import snr_sweep
 
-    cfg = perf_config(small_test_config(channels=8, pulses=32),
-                      pallas=False)
+    cfg = perf_config(small_test_config(channels=8, pulses=32))
     tb = TargetBatch.make([3000.0], [10.0], [10.0], [0.0])
     kw = dict(snr_db_vector=[-42.0, 25.0], num_trials=8, truth=tb,
               seed=11, batch_size=4)

@@ -183,17 +183,3 @@ def test_compact_noise_pipeline_detects_truth():
     pre = precompute(cfg)
     r = np.asarray(res.targets.range_m)[:n]
     assert np.min(np.abs(r - 3000.0)) < 2 * pre.delta_r
-
-
-def test_pallas_noise_rdm_pipeline_detects_truth():
-    """Fused one-pass noise-RDM kernel variant (interpret mode on CPU)."""
-    cfg = small_test_config().replace(fused_synth_dbf=True, lowrank_rdm=True,
-                                      noise_rdm_impl="pallas")
-    process = make_frame_processor(cfg, dtype=jnp.complex64)
-    tb = TargetBatch.make([3000.0], [15.0], [10.0], [20.0])
-    res = process(jax.random.PRNGKey(0), tb)
-    n = int(res.num_final)
-    assert n >= 1
-    pre = precompute(cfg)
-    r = np.asarray(res.targets.range_m)[:n]
-    assert np.min(np.abs(r - 3000.0)) < 2 * pre.delta_r

@@ -1,7 +1,7 @@
 """Orbax-backed distributed checkpointing (io/orbax_store.py):
 sharded arrays round-trip WITH their sharding on the 8-device mesh, and
 the frames_done resume contract matches the npz store's
-(SURVEY.md section 5.4 — the TPU-native half the reference's .mat
+(SURVEY.md section 5.4 — the device-side half the reference's .mat
 persistence has no counterpart for)."""
 
 import jax

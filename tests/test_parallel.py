@@ -49,6 +49,22 @@ def test_overlap_save_halo_exchange():
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_overlap_save_halo_ppermute_shards(n_shards):
+    """The ppermute halo ring at every shard count the CPU mesh offers:
+    complex taps (the transmit pulse's head) against np.convolve."""
+    pre = precompute(small_test_config())
+    h = np.asarray(pre.tx_pulse, np.complex64)[:33]
+    s = 64 * n_shards
+    rng = np.random.default_rng(n_shards)
+    x = _rand_c(rng, (3, s)).astype(jnp.complex64)
+    f = pulse_compress_range_sharded(make_mesh(cpi=n_shards), h, nfft=256,
+                                     axis="cpi")
+    got = np.asarray(f(x))
+    want = np.stack([np.convolve(np.asarray(x)[i], h)[:s] for i in range(3)])
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
 def test_mtd_cpi_sharded_all_to_all():
     mesh = make_mesh(cpi=4)
     cfg = small_test_config(pulses=32)

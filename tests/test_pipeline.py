@@ -139,7 +139,7 @@ def test_monte_carlo_sweep_small():
 @pytest.mark.slow
 def test_monte_carlo_sweep_64ch_scaled():
     """BASELINE config 3 statistical sweep (64 ch x 256 pulses) — the CPU
-    twin of the TPU run in results/snr_sweep_64ch.json. Truth sits at an
+    twin of the full-scale run in results/snr_sweep_64ch.json. Truth sits at an
     in-bank pair crossover (-0.8 deg, pair 9 of the synthesized Hamming
     bank, which spans -16..+3.2 deg — the harness-default 10 deg is
     OUTSIDE this bank and measures sidelobe estimates). Pd transitions

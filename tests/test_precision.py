@@ -1,7 +1,7 @@
-"""bf16 MXU complex-matmul variant (ops/precision.py, cfg.matmul_precision):
+"""bf16 complex-matmul variant (ops/precision.py, cfg.matmul_precision):
 numeric error bounds vs the f32 path and end-to-end detection equivalence.
 The statistical acceptance evidence (Pd/sigma sweep parity with f32) lives
-in results/bf16_matmul.json."""
+in git show dc6ffd7:results/bf16_matmul.json."""
 
 import pytest
 

@@ -53,23 +53,6 @@ def test_streaming_mc_sharded_matches_single():
                                rtol=1e-3)
 
 
-@pytest.mark.slow
-def test_streaming_pallas_config_takes_map_path():
-    """The fused Pallas kernel takes no vmap batch axis; with a pallas
-    perf config the single-device trial batch must route through the
-    sequential lax.map branch (interpret mode here; on TPU the vmapped
-    path fails to lower — the bug fixed in round 4) and still detect."""
-    from radar_tpu.config.params import perf_config
-
-    cfg = perf_config(small_test_config(), pallas=True)
-    pre = precompute(cfg)
-    stats = run_streaming_mc(cfg, num_scenes=1, targets_per_scene=2,
-                             trials_per_scene=2, seed=0, precomp=pre,
-                             snr_range=(14.0, 20.0))
-    assert stats.total_targets == 4
-    assert stats.detection_rate == 1.0   # high-SNR targets all found
-
-
 def test_streaming_dp_trials_matches_single():
     """dp-sharded trial batches (the parfor boundary on the mesh) produce
     the same detection statistics as the single-device run at identical

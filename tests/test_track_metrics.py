@@ -166,7 +166,8 @@ def test_five_target_headline_small_e2e():
     (including the -20 dB target, which the small config's processing
     gain still lifts above threshold) acquires at least one majority-
     pure track with high coverage. The FULL-scale run is
-    results/headline_5target.json (5/5 clean tracks on TPU)."""
+    in git history (git show dc6ffd7:results/headline_5target.json: 5/5
+    clean tracks)."""
     import jax
 
     from radar_tpu.pipeline.driver import (associate_tracks,

@@ -1,5 +1,6 @@
 """Smoke tests for the tracking-layer artifact generators — the scripts
-behind results/headline_5target.json and results/tracking_mc*.json.
+behind results/headline_5target.json and results/tracking_mc*.json (the
+earlier records are in git history, git show dc6ffd7:results/).
 Tiny CPU runs; guards the scenario plumbing, scoring, and artifact
 schema against regressions (the same guardrail test_roc_scripts.py
 gives the detection-layer artifacts)."""
